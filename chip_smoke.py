@@ -8,8 +8,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
 2. build — compiles the hand-written kernels from ``megatts2_tpu_torch/csrc``
    with nvcc (``build/torch_kernels/``) and loads them.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the slice's shapes and beyond, in fp32 and bf16; then kernel and plain
-   timed in turns (plain, kernel, kernel, plain) with CUDA events.
+   the slices' shapes and beyond, in fp32 and bf16: kernel A, kernel B and
+   its row statistics, kernel C (the attention backward) at the PLM's
+   training shape (8, 1024, 16, 64) causal with mixed lengths that include
+   0, and at (2, 300, 4, 128) non-causal; then kernel and plain timed in
+   turns (plain, kernel, kernel, plain) with CUDA events.
 4. reference — a small fp32 slice on the card (kernels) against the same
    modules on the CPU (plain versions): durations and codes equal, mel and
    waveform close.
@@ -19,6 +22,18 @@ Phases, each printing a line; any failure raises and exits non-zero:
    max_frames=512).  Both kernels' launch counters are set to 0 just before
    and must be > 0 after.  Then warm wall times of the batch and of each
    cascade stage.
+6. train reference — a small fp32 PLM (head dim 64, dropout 0) takes 3
+   AdamW steps on the card (kernels B and C) and 3 on the CPU (plain
+   versions) from the same seeded weights: losses, first gradients and
+   final parameters close.
+7. train — the full-width PLM in bf16 over fp32 master weights, driven by
+   ``training.run_training`` for 6 steps on one synthetic batch of B=8,
+   L=1024 in ``PLMBatchBuilder``'s format with mixed lengths.  The forward
+   and backward launch counters are set to 0 just before and must be > 0
+   after; losses finite and the eval loss falling.  Then the warm step's
+   ms, tokens/s and peak device memory; a few ADM steps at
+   ``MegaADMConfig(tc_emb_dim=512)``, B=8, T=64; and a greedy ``plm_infer``
+   from the trained weights that the teacher-forced forward agrees with.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -39,7 +54,14 @@ from scipy.io import wavfile
 
 ATOL_ATT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # fp32 sum order; bf16 output rounding
 ATOL_MEL = 1e-3  # DFT vs FFT sum order over 1024 terms, magnified by log near the 1e-5 clamp
+ATOL_M, RTOL_L = 1e-4, 1e-5  # kernel B's row max and row sum: fp32 sums in another order
+# kernel C, as a fraction of each gradient's largest magnitude: fp32 sums in
+# another order; in bf16, P and ds are rounded before their products, and a
+# rounding that flips moves a term by one bf16 ulp (2^-8)
+REL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
+PLM_B, PLM_L = 8, 1024  # tools/bench_train.py's PLM geometry
+PLM_LENS = [1024, 1024, 960, 800, 700, 512, 384, 100]  # mixed, as PLMBatchBuilder pads
 
 
 def check(cond: bool, msg: str) -> None:
@@ -132,7 +154,46 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     for name, (tk, tp) in (("flash_attention (8,64,2,256) bf16", t_att),
                            ("mel_spectrogram (8,131000) fp32", t_mel)):
         print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms [{card}]")
-    return {"err": err, "ms": {"flash": t_att, "mel": t_mel}}
+
+    # kernel B's row statistics and kernel C against the plain backward
+    err["flash_bwd"] = 0.0
+    for shape, causal in (((8, 1024, 16, 64), True), ((2, 300, 4, 128), False)):
+        B, T = shape[0], shape[1]
+        lens = torch.tensor([T, 0, T // 3 + 1, T - 5, 77, T, 1, 512][:B], dtype=torch.int32,
+                            device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
+            _, m, l = att.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+            _, pm, pl = att.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
+            em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
+            check(em <= ATOL_M and el <= RTOL_L, f"flash stats {shape} {dtype}: m {em}, l {el}")
+            got = att.flash_attention_bwd_cuda(q, k, v, lens, causal, g, m, l)
+            ref = att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l)
+            errs = []
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                e, top = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+                check(bool(torch.isfinite(a).all()), f"flash bwd {name} {shape} {dtype}: non-finite")
+                check(e <= REL_BWD[dtype] * top, f"flash bwd {name} {shape} {dtype}: err {e}, max {top}")
+                err["flash_bwd"] = max(err["flash_bwd"], e)
+                errs.append(f"{name} {e:.3g}/{top:.3g}")
+            print(f"kernel flash_attention_bwd {shape} {str(dtype)[6:]} causal={causal}: "
+                  f"max_abs_err/max {', '.join(errs)} (rel {REL_BWD[dtype]}); "
+                  f"stats m {em:.3g} (atol {ATOL_M}), l rel {el:.3g} (rtol {RTOL_L})")
+    torch.cuda.synchronize()
+
+    # timing at the PLM's training shape: (8, 1024, 16, 64) bf16 causal, mixed lengths
+    q, k, v, g = (torch.randn(8, 1024, 16, 64, generator=gen).to(dev, torch.bfloat16)
+                  for _ in range(4))
+    lens = torch.tensor(PLM_LENS, dtype=torch.int32, device=dev)
+    _, m, l = att.flash_attention_cuda(q, k, v, lens, True, return_stats=True)
+    t_fwd = in_turns(lambda: att.flash_attention_plain(q, k, v, lens, True, return_stats=True),
+                     lambda: att.flash_attention_cuda(q, k, v, lens, True, return_stats=True))
+    t_bwd = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, True, g, m, l),
+                     lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
+    for name, (tk, tp) in (("flash_attention +stats (8,1024,16,64) bf16 causal", t_fwd),
+                           ("flash_attention_bwd (8,1024,16,64) bf16 causal", t_bwd)):
+        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms [{card}]")
+    return {"err": err, "ms": {"flash": t_att, "mel": t_mel, "flash_plm": t_fwd, "flash_bwd": t_bwd}}
 
 
 def _configs(full: bool):
@@ -280,6 +341,155 @@ def phase_slice(dev: torch.device, card: str, root: str) -> dict:
     return launches
 
 
+def _plm_batch(cfg, lens: list[int], L: int, seed: int) -> dict:
+    """A batch in PLMBatchBuilder's format: BOS then codes then eos padding,
+    (B, L + 1) int32; fp16 latents zero past each length; int32 lengths."""
+    rng = np.random.RandomState(seed)
+    p_codes = np.full((len(lens), L + 1), cfg.eos_id, np.int32)
+    tc = np.zeros((len(lens), L, cfg.tc_latent_dim), np.float16)
+    for i, n in enumerate(lens):
+        p_codes[i, 0] = cfg.bos_id
+        p_codes[i, 1 : n + 1] = rng.randint(0, cfg.vq_bins, n)
+        tc[i, :n] = rng.randn(n, cfg.tc_latent_dim)
+    return {"p_codes": p_codes, "tc_latents": tc, "lens": np.asarray(lens, np.int32)}
+
+
+def phase_train_reference(dev: torch.device) -> None:
+    """Small fp32 PLM, 3 AdamW steps on the card (kernels) and on the CPU
+    (plain versions) from the same seeded weights.  The first step has lr 0
+    (warmup 1), so its gradients are those of the initial weights."""
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.training import create_plm_state, make_plm_train_step
+
+    cfg = c.MegaPLMConfig(n_layers=2, n_heads=2, vq_dim=64, tc_latent_dim=64, vq_bins=64,
+                          dropout=0.0)
+    lr = 1e-3
+    tcfg = c.TrainConfig(warmup_steps=1, initial_learning_rate=lr, train_dtype="float32")
+    batch = _plm_batch(cfg, [96, 61, 7, 0], 96, SEED + 2)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        st = create_plm_state(cfg, tcfg, device=d)
+        step, _ = make_plm_train_step(cfg, tcfg)
+        fb, bb = att.flash_attention_cuda.launches, att.flash_attention_bwd_cuda.launches
+        losses = [float(step(st, batch)["loss"])]
+        grads = {n: p.grad.cpu() for n, p in st.model.named_parameters()}
+        losses += [float(step(st, batch)["loss"]) for _ in range(2)]
+        launched = (att.flash_attention_cuda.launches - fb, att.flash_attention_bwd_cuda.launches - bb)
+        params = {n: p.detach().cpu() for n, p in st.model.named_parameters()}
+        out[d.type] = losses, grads, params, launched
+    (l0, g0, p0, _), (l1, g1, p1, launched) = out["cpu"], out["cuda"]
+    check(launched[0] > 0 and launched[1] > 0, f"train reference: kernels not launched {launched}")
+    check(np.allclose(l1, l0, rtol=1e-5, atol=0), f"train reference: losses {l1} vs {l0}")
+    # gradients: fp32 sums in another order, 1e-5 of the largest gradient
+    g_top = max(g.abs().max().item() for g in g0.values())
+    g_err = max((g1[n] - g).abs().max().item() for n, g in g0.items())
+    # parameters: Adam normalises each update, so a weight whose gradient is
+    # near 0 moves by up to ~lr whatever its rounding; 0.05 of the two
+    # nonzero updates' largest movement.  The key-projection bias has a true
+    # gradient of 0 (softmax is shift invariant): up to ~lr per update apart.
+    D = cfg.d_model
+    p_err, kb_err = 0.0, 0.0
+    for n, a in p1.items():
+        d = (a - p0[n]).abs()
+        if n.endswith("attn.qkv.bias"):
+            kb_err = max(kb_err, d[D : 2 * D].max().item())
+            d = torch.cat([d[:D], d[2 * D :]])
+        p_err = max(p_err, d.max().item())
+    check(g_err <= 1e-5 * g_top, f"train reference: gradients err {g_err}, max {g_top}")
+    check(p_err <= 0.05 * 2 * lr and kb_err <= 2.1 * 2 * lr,
+          f"train reference: params err {p_err}, key bias {kb_err}")
+    print(f"train reference fp32 small PLM, card vs CPU, 3 AdamW steps: losses {l1} vs {l0}; "
+          f"gradients max_abs_err {g_err:.3g} of max {g_top:.3g} (rel 1e-5); params max_abs_err "
+          f"{p_err:.3g} (atol {0.05 * 2 * lr:.3g}), key bias {kb_err:.3g} (atol {2.1 * 2 * lr:.3g}); "
+          f"launches fwd {launched[0]} bwd {launched[1]}")
+
+
+def _steps_ms(step, state, batch, n: int = 5) -> float:
+    """Warm milliseconds per train step, host clock around n steps that end
+    in a synchronize (the numpy batch is uploaded in every step)."""
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_train(dev: torch.device, card: str, root: str) -> dict:
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.models import plm_infer
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.training import (create_adm_state, create_plm_state,
+                                             make_adm_train_step, make_plm_train_step,
+                                             run_training)
+
+    cfg, tcfg = c.MegaPLMConfig(), c.TrainConfig(train_dtype="bfloat16", warmup_steps=1)
+    batch = _plm_batch(cfg, PLM_LENS, PLM_L, SEED + 3)
+    t0 = time.perf_counter()
+    st = create_plm_state(cfg, tcfg, device=dev)
+    n_params = sum(p.numel() for p in st.model.parameters())
+    print(f"train: full-width PLM, {n_params} fp32 parameters, built in {time.perf_counter() - t0:.1f} s")
+    step, evaluate = make_plm_train_step(cfg, tcfg)
+    eval_before = float(evaluate(st, batch)["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.flash_attention_cuda.launches = 0
+    att.flash_attention_bwd_cuda.launches = 0
+    log_dir = os.path.join(root, "logs")
+    run_training("plm", st, step, lambda epoch: [batch], max_steps=6, log_dir=log_dir,
+                 log_every=1, val_every=6, eval_step=evaluate,
+                 valid_loader_factory=lambda epoch: [batch])
+    torch.cuda.synchronize()
+    launches = {"flash": att.flash_attention_cuda.launches,
+                "flash_bwd": att.flash_attention_bwd_cuda.launches}
+    print(f"train: launches on the main path {launches}")
+    check(launches["flash"] > 0 and launches["flash_bwd"] > 0, f"a kernel was not launched: {launches}")
+    with open(os.path.join(log_dir, "plm_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    eval_after = [r["val/loss"] for r in rows if "val/loss" in r][-1]
+    check(len(losses) == 6 and all(np.isfinite(losses)), f"train: losses {losses}")
+    check(eval_after < eval_before, f"train: eval loss {eval_before} -> {eval_after} did not fall")
+    print(f"train: PLM losses {[round(x, 4) for x in losses]}; eval loss (no dropout) "
+          f"{eval_before:.4f} -> {eval_after:.4f} over 6 steps (lr 0 at the first)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = _steps_ms(step, st, batch)
+    tokens = PLM_B * PLM_L
+    print(f"train: PLM warm step {ms:.2f} ms, {tokens / ms * 1e3:.0f} tokens/s "
+          f"(B={PLM_B}, L={PLM_L}, padded; {sum(PLM_LENS) / ms * 1e3:.0f} valid tokens/s), "
+          f"peak device memory {peak:.2f} GiB [{card}]")
+
+    acfg = c.MegaADMConfig(tc_emb_dim=512)
+    rng = np.random.RandomState(SEED + 4)
+    B, T = 8, 64
+    abatch = {"tc_latents": rng.randn(B, T, acfg.tc_latent_dim).astype(np.float16),
+              "duration_tokens": np.concatenate(
+                  [np.zeros((B, 1, 1), np.float32), rng.randint(1, 9, (B, T, 1)).astype(np.float32)], 1),
+              "lens": np.full((B,), T, np.int32)}
+    ast = create_adm_state(acfg, tcfg, device=dev)
+    astep, _ = make_adm_train_step(acfg, tcfg)
+    alosses = [float(astep(ast, abatch)["loss"]) for _ in range(4)]
+    check(all(np.isfinite(alosses)), f"train: ADM losses {alosses}")
+    ams = _steps_ms(astep, ast, abatch)
+    print(f"train: ADM (tc_emb_dim 512, head dim 96, plain attention) losses "
+          f"{[round(x, 4) for x in alosses]}; warm step {ams:.2f} ms, B={B}, T={T} [{card}]")
+
+    tc = torch.randn(2, 16, cfg.tc_latent_dim, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    codes = plm_infer(st.model, tc)
+    check(tuple(codes.shape) == (2, 16) and int(codes.min()) >= 0 and int(codes.max()) < cfg.vq_bins,
+          f"decode: codes {tuple(codes.shape)}")
+    p_codes = torch.cat([torch.full((2, 1), cfg.bos_id, device=dev), codes], dim=1)
+    with torch.no_grad():
+        logits, _ = st.model(tc, p_codes, torch.full((2,), 16, device=dev))
+    agree = (logits.argmax(-1) == codes).float().mean().item()
+    check(agree >= 0.9, f"decode: teacher-forced argmax agrees on {agree:.3f} of the codes")
+    print(f"train: plm_infer from the trained weights, 16 greedy codes x 2; the teacher-forced "
+          f"forward picks the same code at {agree:.3f} of the steps")
+    return launches
+
+
 def main() -> None:
     card = phase_device()
     dev = torch.device("cuda")
@@ -288,15 +498,26 @@ def main() -> None:
     phase_reference(dev)
     with tempfile.TemporaryDirectory() as root:
         launches = phase_slice(dev, card, root)
+        phase_train_reference(dev)
+        train = phase_train(dev, card, root)
     record = {"kernels": [
         {"name": "mel_spectrogram", "route": "cuda", "source": "megatts2_tpu_torch/csrc/mel.cu",
          "replaces": "megatts2_tpu/ops/mel.py:190", "launches": launches["mel"],
-         "max_abs_err": k["err"]["mel"], "ms": k["ms"]["mel"][0], "plain_ms": k["ms"]["mel"][1]},
+         "max_abs_err": k["err"]["mel"], "ms": k["ms"]["mel"][0], "plain_ms": k["ms"]["mel"][1],
+         "shape": "(8, 131000) fp32"},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "megatts2_tpu_torch/csrc/flash_attn_fwd.cu",
-         "replaces": "megatts2_tpu/ops/attention_pallas.py:111", "launches": launches["flash"],
-         "max_abs_err": k["err"]["flash"], "ms": k["ms"]["flash"][0],
-         "plain_ms": k["ms"]["flash"][1]},
+         "replaces": "megatts2_tpu/ops/attention_pallas.py:111",
+         "launches": launches["flash"] + train["flash"],
+         "launches_by_path": {"synthesis": launches["flash"], "train": train["flash"]},
+         "max_abs_err": k["err"]["flash"], "ms": k["ms"]["flash_plm"][0],
+         "plain_ms": k["ms"]["flash_plm"][1], "shape": "(8, 1024, 16, 64) bf16 causal, with stats",
+         "ms_mrte": k["ms"]["flash"][0], "plain_ms_mrte": k["ms"]["flash"][1]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "megatts2_tpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "megatts2_tpu/ops/attention_pallas.py:161", "launches": train["flash_bwd"],
+         "max_abs_err": k["err"]["flash_bwd"], "ms": k["ms"]["flash_bwd"][0],
+         "plain_ms": k["ms"]["flash_bwd"][1], "shape": "(8, 1024, 16, 64) bf16 causal"},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

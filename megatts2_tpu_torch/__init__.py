@@ -5,11 +5,13 @@ the same relative path as its JAX counterpart and keeps its public
 layouts: (B, T, C) channels-last activations and (B, T, H, Dh) attention
 tensors, so tests compare like with like.
 
-The slice ported so far is zero-shot synthesis (``models.megatts``): the
+The slices ported so far are zero-shot synthesis (``models.megatts``: the
 prompt front-end, MRTE, the KV-cached ADM and PLM decodes, the MegaG
-decoder and the Vocos vocoder.  Two hand-written CUDA kernels carry it on
-an NVIDIA Hopper card (``csrc/``): the log-mel front-end and the masked
-attention forward.  On CPU tensors every op takes its plain PyTorch
+decoder and the Vocos vocoder) and PLM / ADM training (``training``: the
+teacher-forced forwards, the losses, AdamW with its schedule and the
+train loop).  Three hand-written CUDA kernels carry them on an NVIDIA
+Hopper card (``csrc/``): the log-mel front-end and the masked attention
+forward and backward.  On CPU tensors every op takes its plain PyTorch
 version; on CUDA tensors it launches the kernel or raises.
 
 This package imports no JAX.  It shares the text front-end, the scipy wav

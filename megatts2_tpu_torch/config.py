@@ -1,4 +1,4 @@
-"""Frozen dataclass configs of the synthesis slice.
+"""Frozen dataclass configs of the synthesis and PLM/ADM training slices.
 
 Same names, fields and defaults as ``megatts2_tpu/config.py``; a test holds
 them field for field.  They are declared here rather than imported because
@@ -107,3 +107,22 @@ class VocosConfig:
     n_fft: int = 1024
     hop_length: int = HIFIGAN_HOP_LENGTH
     mag_clip: float = 100.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """PLM / ADM (and, later, GAN) training knobs.  ``train_dtype`` is the
+    compute dtype over fp32 master weights and optimizer state."""
+
+    initial_learning_rate: float = 3e-5
+    warmup_steps: int = 200
+    max_steps: int = 600_000
+    G_commit_loss_coeff: float = 0.15
+    G_vq_loss_coeff: float = 0.05
+    G_adv_loss_coeff: float = 1.0
+    g_ema_decay: float = 0.0  # GAN stage: EMA copy of the generator when > 0
+    train_dtype: str = "bfloat16"
+    log_every_n_steps: int = 100
+    val_check_interval: int = 1500
+    save_every_n_vals: int = 1
+    seed: int = 0

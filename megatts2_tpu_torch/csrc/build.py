@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` into one shared library and load it.
 
 The sources have a plain C interface, so ``nvcc`` compiles them in seconds
-without PyTorch's headers; the library is loaded with ``ctypes``.  The
+without PyTorch's headers, one process per source in parallel; the library
+is loaded with ``ctypes``.  The
 build happens at first use, into ``build/torch_kernels/<hash>/`` at the
 root of the checkout, keyed on a hash of the sources and flags, so a fresh
 checkout builds once and later processes reuse the library.
@@ -25,7 +26,7 @@ BUILD_ROOT = CSRC.parents[1] / "build" / "torch_kernels"
 LIB_NAME = "libmegatts2_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,8 +35,9 @@ _L = ctypes.c_longlong
 # C entry point → argument types; each returns a cudaError_t as int.
 SIGNATURES = {
     "mt_mel_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mt_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_I, ctypes.c_float, _I, _P],
+    "mt_flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _I, _P],
+    "mt_flash_attn_bwd": [_P] * 11 + [_I] * 5
+    + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P],
 }
 
 
@@ -65,23 +67,45 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its path.
 
-    The compiler's register and shared-memory report goes to ``build.log``
-    beside the library.  The library is written under a temporary name and
-    renamed, so concurrent builds never load a partial file."""
+    One ``nvcc -c`` per source, all started together, then one link.  The
+    compiler's register and shared-memory report goes to ``build.log``
+    beside the library.  Objects and library are written under a temporary
+    directory and name and renamed, so concurrent builds never load a
+    partial file."""
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    log = []
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmpdir:
+        jobs = []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(Path(tmpdir) / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+        done = [(cmd, proc, *proc.communicate()) for cmd, proc in jobs]  # wait for all
+        log += [" ".join(cmd) + "\n" + out + err for cmd, _, out, err in done]
+        for cmd, proc, _, err in done:
+            if proc.returncode != 0:
+                _write_log(lib, log)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {cmd[-3]}:\n{err[-4000:]}")
+        objs = [cmd[-1] for cmd, *_ in done]
+        tmp = str(Path(tmpdir) / LIB_NAME)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        _write_log(lib, log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, lib)
     return lib
+
+
+def _write_log(lib: Path, log: list[str]) -> None:
+    (lib.parent / "build.log").write_text("\n".join(log))
 
 
 @functools.lru_cache(maxsize=1)

@@ -31,6 +31,8 @@
 //    exp(-1e9 - m) then underflows to exactly 0.  A row has no key only
 //    when k_len == 0; then all Tk keys take part and the row gives the mean
 //    of V, as the TPU kernel does, never NaN.
+//  * For the backward (kernel C) the kernel can also write each row's final
+//    max m and sum l, fp32 (B, H, Tq); with null pointers it writes neither.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,8 +84,9 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ k_lens,
-                 T* __restrict__ o, int Tq, int Tk, Strides sq, Strides sk,
-                 Strides sv, Strides so, int causal, float scale) {
+                 T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,
+                 int causal, float scale) {
   constexpr int C = DH / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* q_s = smem;                 // [BQ][DH]
@@ -184,6 +187,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + warp * ROWS + i;
     if (qi >= Tq) continue;
     T* orow = o + b * so.b + qi * so.t + h * so.h;
+    if (m_out && lane == 0) {
+      const long long r = (static_cast<long long>(b) * gridDim.y + h) * Tq + qi;
+      m_out[r] = m_i[i];
+      l_out[r] = l_i[i];
+    }
     const float inv = 1.f / l_i[i];
 #pragma unroll
     for (int c = 0; c < C; ++c) orow[c * 32 + lane] = from_f32<T>(acc[i][c] * inv);
@@ -192,8 +200,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* k_lens,
-                   void* o, int B, int Tq, int Tk, int H, Strides sq, Strides sk,
-                   Strides sv, Strides so, int causal, float scale,
+                   void* o, float* m_out, float* l_out, int B, int Tq, int Tk, int H,
+                   Strides sq, Strides sk, Strides sv, Strides so, int causal, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   auto kern = flash_fwd_kernel<T, DH>;
@@ -205,22 +213,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      k_lens, static_cast<T*>(o), Tq, Tk, sq, sk, sv, so, causal, scale);
+      k_lens, static_cast<T*>(o), m_out, l_out, Tq, Tk, sq, sk, sv, so, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
-                        const int* k_lens, void* o, int B, int Tq, int Tk, int H,
-                        Strides sq, Strides sk, Strides sv, Strides so, int causal,
-                        float scale, cudaStream_t stream) {
+                        const int* k_lens, void* o, float* m_out, float* l_out, int B,
+                        int Tq, int Tk, int H, Strides sq, Strides sk, Strides sv,
+                        Strides so, int causal, float scale, cudaStream_t stream) {
   switch (Dh) {
     case 64:
-      return launch<T, 64>(q, k, v, k_lens, o, B, Tq, Tk, H, sq, sk, sv, so, causal, scale, stream);
+      return launch<T, 64>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
+                           causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, k_lens, o, B, Tq, Tk, H, sq, sk, sv, so, causal, scale, stream);
+      return launch<T, 128>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
+                            causal, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, k_lens, o, B, Tq, Tk, H, sq, sk, sv, so, causal, scale, stream);
+      return launch<T, 256>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
+                            causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -231,9 +242,10 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
 // q (B, Tq, H, Dh), k and v (B, Tk, H, Dh), o (B, Tq, H, Dh): element strides
 // over (b, t, h), unit stride over Dh.  k_lens is (B,) int32 or null (all
 // keys valid).  is_bf16 selects __nv_bfloat16 over float for all four.
+// m_out and l_out are (B, H, Tq) fp32 for the row max and sum, or both null.
 extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                 const int* k_lens, void* o, int B, int Tq, int Tk,
-                                 int H, int Dh, long long sq_b, long long sq_t,
+                                 const int* k_lens, void* o, float* m_out, float* l_out,
+                                 int B, int Tq, int Tk, int H, int Dh, long long sq_b, long long sq_t,
                                  long long sq_h, long long sk_b, long long sk_t,
                                  long long sk_h, long long sv_b, long long sv_t,
                                  long long sv_h, long long so_b, long long so_t,
@@ -243,9 +255,9 @@ extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
   const Strides sv{sv_b, sv_t, sv_h}, so{so_b, so_t, so_h};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      is_bf16 ? dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_lens, o, B, Tq, Tk, H, sq,
-                                           sk, sv, so, causal, scale, st)
-              : dispatch_dh<float>(Dh, q, k, v, k_lens, o, B, Tq, Tk, H, sq, sk, sv,
-                                   so, causal, scale, st);
+      is_bf16 ? dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq,
+                                           Tk, H, sq, sk, sv, so, causal, scale, st)
+              : dispatch_dh<float>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq,
+                                   sk, sv, so, causal, scale, st);
   return static_cast<int>(e);
 }

@@ -1,5 +1,7 @@
-"""KV-cached greedy decode loops of the PLM and ADM (port of
-``megatts2_tpu/models/fast_decode.py``).
+"""The PLM's and ADM's decoder layers: the KV-cached greedy decode loops
+(port of ``megatts2_tpu/models/fast_decode.py``) and the teacher-forced
+full-sequence forward that training runs (port of the linear-FF
+``TransformerEncoderLayer`` of ``megatts2_tpu/nn/transformer.py``).
 
 Each decoder layer holds ONE merged q/k/v projection (the bridge
 concatenates the JAX ``w_q``, ``w_k``, ``w_v`` at load time) and each layer
@@ -13,12 +15,51 @@ accumulated in fp32 from compute-dtype operands, fp32 softmax, then P·V in
 the compute dtype.  A step attends to cache positions ``<= t`` only, which
 equals the JAX masked attention over the whole cache, since the masked
 positions there carry exactly zero weight.
+
+The training forward computes in the dtype of its input over fp32 master
+weights, with the casts of flax's ``dtype=`` written out: a Dense casts its
+weight and bias to the compute dtype, LayerNorm keeps fp32 statistics and
+returns the compute dtype, and the residual stream stays in it.  Attention
+is the masked flash attention of ``ops/attention.py`` (kernels B and C on
+the card) under ``use_flash``, else the additive mask through
+``nn/transformer.attend``, as the JAX encoder chooses.  Dropout sits after
+the output projection and on the FF hidden, drawn from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..nn.transformer import attend
+from ..ops.attention import flash_attention
+from ..ops.masks import causal_mask, make_attn_mask
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=x.dtype)``: weight and bias cast to x's dtype."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=x.dtype)``: fp32 statistics and affine, output in x's dtype."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by its
+    inverse; the identity at rate 0.  ``generator`` lives on x's device."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class CachedSelfAttention(nn.Module):
@@ -40,6 +81,30 @@ class DecoderLayer(nn.Module):
         self.ff_linear1 = nn.Linear(dim, ff_dim)
         self.ff_linear2 = nn.Linear(ff_dim, dim)
 
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, T, D) in the compute dtype
+        mask: Optional[torch.Tensor],  # additive (B|1, 1, T, T), or None on the flash path
+        k_lens: Optional[torch.Tensor],  # (B,) on the flash path
+        causal: bool,
+        rate: float,
+        generator: Optional[torch.Generator],
+    ) -> torch.Tensor:
+        """Teacher-forced pre-LN layer over the whole sequence:
+        x + drop(out_proj(attn(norm1 x))), then
+        x + linear2(drop(relu(linear1(norm2 x))))."""
+        B, T, D = x.shape
+        H = self.attn.n_heads
+        qkv = dense(self.attn.qkv, layer_norm(self.norm1, x))  # (B, T, 3D): q, k, v side by side
+        q, k, v = (t.view(B, T, H, D // H) for t in qkv.split(D, dim=-1))
+        if k_lens is not None:
+            att = flash_attention(q, k, v, k_lens, causal)
+        else:
+            att = attend(q, k, v, mask)
+        x = x + dropout(dense(self.attn.out_proj, att.reshape(B, T, D)), rate, generator)
+        h = dropout(F.relu(dense(self.ff_linear1, layer_norm(self.norm2, x))), rate, generator)
+        return x + dense(self.ff_linear2, h)
+
     def step(self, x: torch.Tensor, ckv: torch.Tensor, t: int) -> torch.Tensor:
         """x (B, D) at position t; writes this token's k and v into ``ckv``
         (B, L, 2D) in place and returns the layer's output (B, D)."""
@@ -59,9 +124,42 @@ class DecoderLayer(nn.Module):
 
 
 class DecoderStack(nn.Module):
-    def __init__(self, dim: int, ff_dim: int, num_layers: int, n_heads: int):
+    def __init__(
+        self, dim: int, ff_dim: int, num_layers: int, n_heads: int, dropout: float = 0.0,
+        use_flash: bool = False,
+    ):
         super().__init__()
+        self.dropout = dropout
+        self.use_flash = use_flash
         self.layers = nn.ModuleList(DecoderLayer(dim, ff_dim, n_heads) for _ in range(num_layers))
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, T, D) in the compute dtype
+        x_lens: Optional[torch.Tensor] = None,  # (B,)
+        causal: bool = False,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The whole sequence through every layer; the mask is built once from
+        the lengths (padding, optionally causal) or, with ``use_flash``,
+        passed to the kernel as lengths."""
+        B, T = x.shape[0], x.shape[1]
+        mask = k_lens = None
+        if x_lens is not None:
+            if self.use_flash:
+                k_lens = x_lens
+            else:
+                mask = make_attn_mask(x_lens, T, causal=causal)
+        elif causal:
+            if self.use_flash:
+                k_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
+            else:
+                mask = causal_mask(T, device=x.device)
+        rate = self.dropout if train else 0.0
+        for layer in self.layers:
+            x = layer(x, mask, k_lens, causal, rate, generator)
+        return x
 
     def new_cache(self, B: int, L: int, like: torch.Tensor) -> list[torch.Tensor]:
         """One zeroed (B, L, 2D) buffer per layer, in ``like``'s dtype and device."""

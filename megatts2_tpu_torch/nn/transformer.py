@@ -8,8 +8,9 @@ non-decode part of ``megatts2_tpu/nn/transformer.py``).
 * TransformerEncoderLayer: pre-LN residual attention, then the conv FF
   Conv1d(k=5)-ReLU-Conv1d(k=5), where norm2 sits OUTSIDE the residual
   (``x = norm2(x) + ff(norm2(x))``), as in the reference.  The JAX
-  layer's linear-FF variant (PLM/ADM training forward) waits for the
-  training slices.
+  layer's linear-FF variant (the PLM's and ADM's layers) is
+  ``models/fast_decode.DecoderLayer``, whose ``forward`` is the
+  teacher-forced training forward and whose ``step`` is the decode.
 * TransformerEncoder: N layers in a ``ModuleList``; the mask is built once
   from lengths (padding, optionally causal), or, with ``use_flash``, passed
   to the kernel as lengths.

@@ -1,4 +1,5 @@
-"""Masked attention forward (port of ``megatts2_tpu/ops/attention_pallas.py``).
+"""Masked attention, forward and backward (port of
+``megatts2_tpu/ops/attention_pallas.py``).
 
 softmax(Q K^T * Dh^-0.5) V on (B, T, H, Dh) tensors.  The key-padding mask
 comes from per-batch ``k_lens`` and the optional causal mask from positions;
@@ -8,32 +9,41 @@ the output is in q's dtype.
 
 * :func:`flash_attention_plain` — the Pallas kernel's math in plain
   PyTorch: upcast, ``where(mask, logits, -1e9)``, fp32 softmax numerator
-  and denominator, fp32 P V.
-* :func:`flash_attention_cuda` — kernel B (``csrc/flash_attn_fwd.cu``).
-* :func:`flash_attention` — dispatch by device: CPU → plain, CUDA → kernel.
+  and denominator, fp32 P V.  Optionally returns the row max ``m`` and row
+  sum ``l`` (B, H, Tq) that the backward recomputes P from.
+* :func:`flash_attention_bwd_plain` — ``_fa_bwd``'s math in plain PyTorch,
+  with its roundings of P and ds to q's dtype.
+* :func:`flash_attention_cuda` / :func:`flash_attention_bwd_cuda` — kernel
+  B (``csrc/flash_attn_fwd.cu``) and kernel C (``csrc/flash_attn_bwd.cu``).
+* :class:`FlashAttentionFunction` — the ``custom_vjp``: forward by kernel B
+  (plain on the CPU) saving q, k, v, k_lens, m and l; backward by kernel C
+  (plain on the CPU).
+* :func:`flash_attention` — dispatch by device (CPU → plain, CUDA →
+  kernel), through the Function when autograd records.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from .masks import NEG_INF
 
-HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
+HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
 
 
-def flash_attention_plain(
-    q: torch.Tensor,  # (B, Tq, H, Dh)
-    k: torch.Tensor,  # (B, Tk, H, Dh)
-    v: torch.Tensor,  # (B, Tk, H, Dh)
-    k_lens: Optional[torch.Tensor] = None,  # (B,) valid key lengths
-    causal: bool = False,
-) -> torch.Tensor:
-    """Masked attention in plain PyTorch ops; output (B, Tq, H, Dh) in q.dtype."""
-    B, Tq, H, Dh = q.shape
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """fp32 accumulation, fp64 for fp64 inputs (gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _masked_logits(q, k, k_lens, causal) -> torch.Tensor:
+    """where(mask, Q K^T * scale, -1e9), (B, H, Tq, Tk) in the accumulation dtype."""
+    B, Tq, _, Dh = q.shape
     Tk = k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (Dh**-0.5)
+    acc = _acc_dtype(q)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * (Dh**-0.5)
     kpos = torch.arange(Tk, device=q.device)
     if k_lens is None:
         mask = torch.ones(B, 1, 1, Tk, dtype=torch.bool, device=q.device)
@@ -42,24 +52,56 @@ def flash_attention_plain(
     if causal:
         qpos = torch.arange(Tq, device=q.device)
         mask = mask & (kpos[None, :] <= qpos[:, None])[None, None]
-    logits = torch.where(mask, logits, torch.full((), NEG_INF, device=q.device))
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return logits.masked_fill(~mask, NEG_INF)
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # (B, Tq, H, Dh)
+    k: torch.Tensor,  # (B, Tk, H, Dh)
+    v: torch.Tensor,  # (B, Tk, H, Dh)
+    k_lens: Optional[torch.Tensor] = None,  # (B,) valid key lengths
+    causal: bool = False,
+    return_stats: bool = False,
+):
+    """Masked attention in plain PyTorch ops; output (B, Tq, H, Dh) in q.dtype,
+    with ``return_stats`` also the row max and row sum (B, H, Tq)."""
+    logits = _masked_logits(q, k, k_lens, causal)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
     denom = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / denom
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bhqd", p, v.to(p.dtype)) / denom
+    out = out.permute(0, 2, 1, 3).to(q.dtype)
+    return (out, m[..., 0], denom[..., 0]) if return_stats else out
 
 
-def flash_attention_cuda(
+def flash_attention_bwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    k_lens: Optional[torch.Tensor] = None,
-    causal: bool = False,
-) -> torch.Tensor:
-    """Kernel B (``csrc/flash_attn_fwd.cu``).  Reads q, k, v in place through
-    their strides; each needs unit stride over Dh."""
+    k_lens: Optional[torch.Tensor],
+    causal: bool,
+    g: torch.Tensor,  # (B, Tq, H, Dh) cotangent of the output
+    m: torch.Tensor,  # (B, H, Tq) row max from the forward
+    l: torch.Tensor,  # (B, H, Tq) row sum from the forward
+):
+    """(dq, dk, dv) as ``_fa_bwd`` computes them: P = exp(s - m) / l in fp32,
+    P rounded to q's dtype for P^T g, D = rowsum(dp * P) from the fp32 P and
+    dp, ds = P (dp - D) rounded to q's dtype for the dq and dk products."""
+    acc = _acc_dtype(q)
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(_masked_logits(q, k, k_lens, causal) - m[..., None].to(acc)) / l[..., None].to(acc)
+    g32 = g.to(acc)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(acc), g32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g32, v.to(acc))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_qkv(q, k, v, k_lens, what: str) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda takes CUDA tensors")
+        raise ValueError(f"{what} takes CUDA tensors")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (q.dtype == k.dtype == v.dtype):
@@ -67,12 +109,11 @@ def flash_attention_cuda(
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q is (B, Tq, H, Dh); k and v are (B, Tk, H, Dh)")
     B, Tq, H, Dh = q.shape
-    Tk = k.shape[1]
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, Dh):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
-    if Tq == 0 or Tk == 0:
+    if Tq == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride over the head dim")
@@ -81,24 +122,123 @@ def flash_attention_cuda(
             raise ValueError("k_lens must be on the device of q")
         if k_lens.dtype != torch.int32 or k_lens.shape != (B,) or not k_lens.is_contiguous():
             raise ValueError("k_lens must be a contiguous (B,) int32 tensor")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_lens: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    return_stats: bool = False,
+):
+    """Kernel B (``csrc/flash_attn_fwd.cu``).  Reads q, k, v in place through
+    their strides; each needs unit stride over Dh.  With ``return_stats``
+    also returns the row max and row sum, fp32 (B, H, Tq)."""
+    _check_qkv(q, k, v, k_lens, "flash_attention_cuda")
     from ..csrc.build import check, load_library
 
+    B, Tq, H, Dh = q.shape
     lib = load_library()
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    m = l = None
+    if return_stats:
+        m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     with torch.cuda.device(q.device):
         err = lib.mt_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if k_lens is None else k_lens.data_ptr(), out.data_ptr(),
-            B, Tq, Tk, H, Dh, *strides, int(causal), Dh**-0.5,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_lens), out.data_ptr(),
+            _ptr(m), _ptr(l), B, Tq, k.shape[1], H, Dh, *strides, int(causal), Dh**-0.5,
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     check(err, "flash attention kernel")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, m, l) if return_stats else out
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_lens: Optional[torch.Tensor],
+    causal: bool,
+    g: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+):
+    """Kernel C (``csrc/flash_attn_bwd.cu``): (dq, dk, dv) in q's dtype.
+    q, k, v and g are read in place through their strides (unit stride over
+    Dh; g is made contiguous otherwise); m and l are kernel B's statistics."""
+    _check_qkv(q, k, v, k_lens, "flash_attention_bwd_cuda")
+    B, Tq, H, Dh = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must match q: {tuple(g.shape)} {g.dtype} vs {tuple(q.shape)} {q.dtype}")
+    for name, t in (("m", m), ("l", l)):
+        if t.shape != (B, H, Tq) or t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (B, H, Tq) float32 tensor on q's device")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    from ..csrc.build import check, load_library
+
+    lib = load_library()
+    dq = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty_like(m)  # D = rowsum(dp * P), written by pass 1
+    strides = (ctypes.c_longlong * 21)(
+        *[t.stride(i) for t in (q, k, v, g, dq, dk, dv) for i in range(3)]
+    )
+    with torch.cuda.device(q.device):
+        err = lib.mt_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(k_lens),
+            m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Tq, k.shape[1], H, Dh, strides, int(causal), Dh**-0.5,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "flash attention backward kernel")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def _by_device(t: torch.Tensor, cuda_fn, plain_fn):
+    if t.is_cuda:
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"flash_attention: no implementation for device {t.device}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Masked attention with the recompute backward: kernels B and C on CUDA
+    tensors, their plain versions on CPU tensors.  No gradient for
+    ``k_lens`` or ``causal``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_lens, causal):
+        fwd = _by_device(q, flash_attention_cuda, flash_attention_plain)
+        out, m, l = fwd(q, k, v, k_lens, causal, return_stats=True)
+        ctx.save_for_backward(q, k, v, k_lens, m, l)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, k_lens, m, l = ctx.saved_tensors
+        bwd = _by_device(q, flash_attention_bwd_cuda, flash_attention_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, k_lens, ctx.causal, g.to(q.dtype), m, l)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -108,12 +248,12 @@ def flash_attention(
     k_lens: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Masked attention: the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors.  Never falls back from one to the other."""
+    """Masked attention: the CUDA kernels on CUDA tensors, the plain versions
+    on CPU tensors, never falling back from one to the other.  Autograd goes
+    through :class:`FlashAttentionFunction`; without it, inference runs the
+    forward alone."""
     if k_lens is not None:
-        k_lens = k_lens.to(torch.int32)
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, k_lens, causal)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, k_lens, causal)
-    raise ValueError(f"flash_attention: no implementation for device {q.device}")
+        k_lens = k_lens.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, k_lens, causal)
+    return _by_device(q, flash_attention_cuda, flash_attention_plain)(q, k, v, k_lens, causal)

@@ -1,0 +1,4 @@
+from .lm_trainers import (TrainState, create_adm_state, create_plm_state,
+                          make_adm_train_step, make_plm_train_step, top_k_accuracy)
+from .schedules import cosine_schedule_with_warmup, make_adamw
+from .train_loop import run_training

@@ -6,7 +6,11 @@ machine with a card and no JAX, run them with
 
 (``--noconftest`` because the suite's conftest configures JAX).  Tolerances:
 fp32 attention atol 1e-4 and bf16 atol 2e-2 (same inputs, sums in another
-order; bf16 output rounding); log-mel atol 1e-3, because a direct DFT and an
+order; bf16 output rounding); the forward's row statistics atol 1e-4 (row
+max) and rtol 1e-5 (row sum), fp32 sums in another order; the backward
+1e-4 (fp32) and 2e-2 (bf16) of each gradient's largest magnitude, since P
+and ds are rounded to bf16 before their products and a rounding that flips
+moves a term by one bf16 ulp; log-mel atol 1e-3, because a direct DFT and an
 FFT sum 1024 terms in different orders and log(clamp(., 1e-5)) magnifies
 that near the clamp."""
 import numpy as np
@@ -74,6 +78,84 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         tatt.flash_attention_cuda(y, y.bfloat16(), y)
     with pytest.raises(ValueError, match="unit stride"):
         tatt.flash_attention_cuda(y.transpose(1, 3).contiguous().transpose(1, 3), y, y)
+
+
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _close_to_max(got, ref, rel, what):
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all(), what
+    assert err <= rel * ref.abs().max().item(), f"{what}: err {err} vs max {ref.abs().max().item()}"
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 4, 64), (3, 77, 4, 128), (2, 40, 2, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal):
+    B, T, H, Dh = shape
+    g = torch.Generator().manual_seed(3)
+    q, k, v, go = (torch.randn(shape, generator=g).to(cuda, dtype) for _ in range(4))
+    lens = _lens(B, T).to(cuda)
+    out, m, l = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+    ref_out, ref_m, ref_l = tatt.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
+    torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=0)
+    before = tatt.flash_attention_bwd_cuda.launches
+    got = tatt.flash_attention_bwd_cuda(q, k, v, lens, causal, go, m, l)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_bwd_cuda.launches == before + 1
+    want = tatt.flash_attention_bwd_plain(q, k, v, lens, causal, go, m, l)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close_to_max(a, b, BWD_RTOL[dtype], f"{name} {shape} {dtype} causal={causal}")
+
+
+def test_flash_backward_kernel_reads_strided_views(cuda):
+    """q, k, v as views into one packed (B, T, 3, H, Dh) tensor, g a
+    transposed view: read in place through their strides."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v = torch.randn(2, 50, 3, 4, 64, generator=g).to(cuda).unbind(2)
+    go = torch.randn(2, 4, 50, 64, generator=g).to(cuda).transpose(1, 2)
+    lens = torch.tensor([50, 17], dtype=torch.int32, device=cuda)
+    _, m, l = tatt.flash_attention_cuda(q, k, v, lens, True, return_stats=True)
+    got = tatt.flash_attention_bwd_cuda(q, k, v, lens, True, go, m, l)
+    want = tatt.flash_attention_bwd_plain(q, k, v, lens, True, go, m, l)
+    for a, b in zip(got, want):
+        _close_to_max(a, b, 1e-4, "strided")
+
+
+def test_autograd_on_the_card_matches_the_cpu(cuda):
+    """The Function launches kernels B and C once each and gives the CPU
+    (plain) gradients."""
+    g = torch.Generator().manual_seed(5)
+    x = [torch.randn(2, 64, 2, 64, generator=g) for _ in range(4)]
+    lens = torch.tensor([64, 0], dtype=torch.int32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).detach().requires_grad_() for t in x[:3]]
+        fb, bb = tatt.flash_attention_cuda.launches, tatt.flash_attention_bwd_cuda.launches
+        tatt.flash_attention(*leaves, lens.to(dev), True).backward(x[3].to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tatt.flash_attention_cuda.launches == fb + 1
+            assert tatt.flash_attention_bwd_cuda.launches == bb + 1
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        _close_to_max(a, b, 1e-4, "autograd")
+
+
+def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 2, 96, device=cuda)  # the ADM's head dim at tc_emb_dim=512
+    st = torch.ones(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.flash_attention_bwd_cuda(x, x, x, None, False, x, st, st)
+    y = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="m must be"):
+        tatt.flash_attention_bwd_cuda(y, y, y, None, False, y, st.double(), st)
+    with pytest.raises(ValueError, match="g must match"):
+        tatt.flash_attention_bwd_cuda(y, y, y, None, False, y.bfloat16(), st, st)
 
 
 @pytest.mark.parametrize("shape", [(1, 64001), (8, 131000), (2, 777), (5000,)])

@@ -18,7 +18,8 @@ from megatts2_tpu_torch import config as tcfg
 from megatts2_tpu_torch.bridge import load_flax_params
 
 KEY = jax.random.PRNGKey(0)
-CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "MegaPLMConfig", "MegaADMConfig", "VocosConfig"]
+CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "MegaPLMConfig", "MegaADMConfig", "VocosConfig",
+           "TrainConfig"]
 
 
 def _default(f):
