@@ -11,22 +11,34 @@ Phases, each printing a line; any failure raises and exits non-zero:
    the slices' shapes and beyond, in fp32 and bf16: kernel A, kernel B and
    its row statistics, kernel C (the attention backward) at the PLM's
    training shape (8, 1024, 16, 64) causal with mixed lengths that include
-   0, and at (2, 300, 4, 128) non-causal; then kernel and plain timed in
-   turns (plain, kernel, kernel, plain) with CUDA events.
-4. reference — a small fp32 slice on the card (kernels) against the same
-   modules on the CPU (plain versions): durations and codes equal, mel and
+   0, and at (2, 300, 4, 128) non-causal, kernel D (the copy pump) at
+   (3, 16, 256) and the tool's (144, 256, 4096) for 1, 2 and 16 passes,
+   both outputs exact; then kernel and plain timed in turns (plain, kernel,
+   kernel, plain) with CUDA events, each beside its bound (the larger of
+   its bytes over 3.35 TB/s and its operations over the peak rate of their
+   type) and one PyTorch library call that computes the same function.
+4. reference — small fp32 slices on the card (kernels) against the same
+   modules on the CPU (plain versions): greedy from BOS with Vocos, then an
+   int8 PLM sampled at top-k 8 with injected noise after a prefilled
+   prompt, with HiFi-GAN; durations, codes and n_frames equal, mel and
    waveform close.
 5. slice — the full-width synthesis configuration in bf16 with seeded
    random weights, driven through ``Megatts.__call__`` (two ~4 s prompt
    wavs) and ``Megatts.synthesize_batch`` (B=8, Tp=64, Tm=512,
-   max_frames=512).  Both kernels' launch counters are set to 0 just before
-   and must be > 0 after.  Then warm wall times of the batch and of each
-   cascade stage.
-6. train reference — a small fp32 PLM (head dim 64, dropout 0) takes 3
+   max_frames=512), three times: the float PLM with Vocos, greedy; the int8
+   PLM with Vocos, greedy; the int8 PLM with HiFi-GAN, sampled at top-k 8
+   after a prosody prompt.  Before each, kernel A's and kernel B's launch
+   counters are set to 0; after it, both must be > 0.  Then warm wall
+   times of the batch and of each cascade stage.
+6. bandwidth — ``megatts2_tpu_torch.tools.bw_ceiling`` at its full shapes:
+   read_reduce, dots, kernel D at 16 and 64 passes and their fit, and the
+   int8 PLM decode at B=8, T=64 against that ceiling.  Kernel D's counter
+   is set to 0 before and must be > 0 after.
+7. train reference — a small fp32 PLM (head dim 64, dropout 0) takes 3
    AdamW steps on the card (kernels B and C) and 3 on the CPU (plain
    versions) from the same seeded weights: losses, first gradients and
    final parameters close.
-7. train — the full-width PLM in bf16 over fp32 master weights, driven by
+8. train — the full-width PLM in bf16 over fp32 master weights, driven by
    ``training.run_training`` for 6 steps on one synthetic batch of B=8,
    L=1024 in ``PLMBatchBuilder``'s format with mixed lengths.  The forward
    and backward launch counters are set to 0 just before and must be > 0
@@ -37,19 +49,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
-the JAX package itself (the port shares its JAX-free text front-end).
+the JAX package.
 """
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.io import wavfile
 
 ATOL_ATT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # fp32 sum order; bf16 output rounding
@@ -62,6 +74,12 @@ REL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
 PLM_B, PLM_L = 8, 1024  # tools/bench_train.py's PLM geometry
 PLM_LENS = [1024, 1024, 960, 800, 700, 512, 384, 100]  # mixed, as PLMBatchBuilder pads
+# H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and operations
+# per ms by type; a kernel's bound is the larger of bytes and operations
+HBM_BYTES_PER_MS = 3.35e9
+PEAK_OPS_PER_MS = {"bf16": 989e9, "fp32": 67e9, "int8": 1979e9}
+PUMP_SHAPE, PUMP_STEPS = (144, 256, 4096), 16  # tools/bw_ceiling.py's W; the fit's first point
+TEMPERATURE = 0.8  # the sampled slices' PLM temperature, at top-k 8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -71,15 +89,33 @@ def check(cond: bool, msg: str) -> None:
 
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean device milliseconds per call of ``fn`` over ``iters`` calls, warm."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    from megatts2_tpu_torch.tools.bw_ceiling import time_ms
+
+    return time_ms(fn, torch.device("cuda"), iters)
+
+
+def bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card could take, what sets it): the bytes over the memory
+    rate or the operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[kind]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_pairs(lens, Tq: int, H: int, causal: bool) -> int:
+    """(query, key) pairs the length and causal masks keep, over all heads."""
+    q = np.arange(Tq)[None, :]
+    L = np.asarray(lens)[:, None]
+    keys = np.minimum(L, q + 1) if causal else np.broadcast_to(L, (len(lens), Tq))
+    return int(keys.sum()) * H
+
+
+def sdpa_mask(lens: torch.Tensor, T: int, causal: bool) -> torch.Tensor:
+    """Boolean (B, 1, T, T) mask for ``scaled_dot_product_attention``."""
+    kpos = torch.arange(T, device=lens.device)
+    mask = kpos[None, None, None, :] < lens[:, None, None, None]
+    if causal:
+        mask = mask & (kpos[None, None, None, :] <= kpos[None, None, :, None])
+    return mask
 
 
 def in_turns(plain, kernel) -> tuple[float, float]:
@@ -93,10 +129,9 @@ def phase_device() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         raise SystemExit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from megatts2_tpu_torch.tools.bw_ceiling import card_name
+
+    smi = card_name(torch.device("cuda"))
     print(smi)
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -115,7 +150,7 @@ def phase_build() -> None:
 
 def phase_kernels(dev: torch.device, card: str) -> dict:
     from megatts2_tpu_torch.ops import attention as att
-    from megatts2_tpu_torch.ops import mel
+    from megatts2_tpu_torch.ops import mel, pump
 
     gen = torch.Generator().manual_seed(SEED)
     err = {"flash": 0.0, "mel": 0.0}
@@ -151,9 +186,27 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                      lambda: att.flash_attention_cuda(q, k, v, lens))
     y = (torch.randn(8, 131000, generator=gen) * 0.1).to(dev)
     t_mel = in_turns(lambda: mel.mel_spectrogram_plain(y), lambda: mel.mel_spectrogram_cuda(y))
-    for name, (tk, tp) in (("flash_attention (8,64,2,256) bf16", t_att),
-                           ("mel_spectrogram (8,131000) fp32", t_mel)):
-        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms [{card}]")
+    window, fb, _ = mel._tables(1024, 1024, 80, dev)
+
+    def mel_library():  # torch.stft + filterbank matmul + log clamp: a composite of library calls
+        spec = torch.stft(y, 1024, 256, 1024, window=window, center=True, pad_mode="reflect",
+                          return_complex=True).abs()
+        return torch.log(torch.clamp(spec.transpose(-1, -2) @ fb, min=1e-5))
+
+    frames = mel.num_frames(y.shape[-1])
+    lib = {"mel": cuda_ms(mel_library), "flash_mrte": cuda_ms(
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2), attn_mask=sdpa_mask(lens, 64, False)))}
+    # per frame: a real 1024-point FFT (5/2 N log2 N), |X| (3 a bin), the
+    # filterbank (2 a weight), the log
+    mel_ops = y.shape[0] * frames * (2.5 * 1024 * 10 + 3 * 513 + 2 * 513 * 80 + 80)
+    bounds = {"mel": bound(y.numel() * 4 + y.shape[0] * frames * 80 * 4, mel_ops, "fp32"),
+              "flash_mrte": bound(4 * q.numel() * 2,
+                                  4 * 256 * attn_pairs(lens.cpu().numpy(), 64, 2, False), "bf16")}
+    for name, (tk, tp), key in (("flash_attention (8,64,2,256) bf16", t_att, "flash_mrte"),
+                                ("mel_spectrogram (8,131000) fp32", t_mel, "mel")):
+        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, library {lib[key]:.4f} ms, "
+              f"bound {bounds[key][0]:.4f} ms by {bounds[key][1]} [{card}]")
 
     # kernel B's row statistics and kernel C against the plain backward
     err["flash_bwd"] = 0.0
@@ -190,10 +243,67 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                      lambda: att.flash_attention_cuda(q, k, v, lens, True, return_stats=True))
     t_bwd = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, True, g, m, l),
                      lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
-    for name, (tk, tp) in (("flash_attention +stats (8,1024,16,64) bf16 causal", t_fwd),
-                           ("flash_attention_bwd (8,1024,16,64) bf16 causal", t_bwd)):
-        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms [{card}]")
-    return {"err": err, "ms": {"flash": t_att, "mel": t_mel, "flash_plm": t_fwd, "flash_bwd": t_bwd}}
+    mask = sdpa_mask(lens, 1024, True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = g.transpose(1, 2)
+    lib["flash_plm"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    lib["flash_bwd"] = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    del out, qt, kt, vt
+    pairs = attn_pairs(PLM_LENS, 1024, 16, True)
+    stats = 2 * m.numel() * 4
+    bounds["flash_plm"] = bound(4 * q.numel() * 2 + stats, 4 * 64 * pairs, "bf16")
+    # recompute Q K^T, then dP = g V^T, dV = P^T g, dQ = dS K, dK = dS^T Q
+    bounds["flash_bwd"] = bound(7 * q.numel() * 2 + stats, 10 * 64 * pairs, "bf16")
+    # the PLM prompt prefill: causal over P prompt codes, every row of length P
+    for P in (32, 256):
+        q, k, v = (torch.randn(8, P, 16, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+        plen = torch.full((8,), P, dtype=torch.int32, device=dev)
+        got, ref = att.flash_attention_cuda(q, k, v, plen, True), att.flash_attention_plain(q, k, v, plen, True)
+        e = (got.float() - ref.float()).abs().max().item()
+        check(e <= ATOL_ATT[torch.bfloat16], f"flash prefill P={P}: err {e}")
+        err["flash"] = max(err["flash"], e)
+        tk, tp = in_turns(lambda: att.flash_attention_plain(q, k, v, plen, True),
+                          lambda: att.flash_attention_cuda(q, k, v, plen, True))
+        t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
+        b = bound(4 * q.numel() * 2, 4 * 64 * attn_pairs([P] * 8, P, 16, True), "bf16")
+        print(f"time flash_attention prefill (8,{P},16,64) bf16 causal: kernel {tk:.4f} ms, plain "
+              f"{tp:.4f} ms, library (SDPA) {t_lib:.4f} ms, bound {b[0]:.4f} ms by {b[1]}; "
+              f"max_abs_err {e:.3g} [{card}]")
+    for name, (tk, tp), key in (("flash_attention +stats (8,1024,16,64) bf16 causal", t_fwd, "flash_plm"),
+                                ("flash_attention_bwd (8,1024,16,64) bf16 causal", t_bwd, "flash_bwd")):
+        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, library (SDPA) {lib[key]:.4f} ms, "
+              f"bound {bounds[key][0]:.4f} ms by {bounds[key][1]} [{card}]")
+
+    # kernel D: both outputs exact, at a small shape and the tool's
+    err["pump"] = 0
+    for shape in ((3, 16, 256), PUMP_SHAPE):
+        w = torch.randint(-127, 127, shape, generator=gen, dtype=torch.int8).to(dev)
+        for steps in (1, 2, 16):
+            (h, t), (ph, pt) = pump.pump_cuda(w, steps), pump.pump_plain(w, steps)
+            e = max(abs(h.item() - ph.item()), abs(t.item() - pt.item()))
+            check(e == 0, f"pump {shape} steps {steps}: head {h.item()} vs {ph.item()}, "
+                          f"total {t.item()} vs {pt.item()}")
+            err["pump"] = max(err["pump"], e)
+        print(f"kernel pump {shape} steps 1, 2, 16: head and total equal to plain "
+              f"(16 passes: head {h.item():.0f}, total {t.item()})")
+    w32 = w.view(torch.int32)
+    dst = torch.empty_like(w)
+    t_pump = in_turns(lambda: pump.pump_plain(w, PUMP_STEPS), lambda: pump.pump_cuda(w, PUMP_STEPS))
+    lib["pump"] = cuda_ms(lambda: [torch.sum(w32, dtype=torch.int64) for _ in range(PUMP_STEPS)])
+    lib["pump_copy"] = cuda_ms(lambda: [dst.copy_(w) for _ in range(PUMP_STEPS)])
+    n = PUMP_STEPS * w.numel()
+    bounds["pump"] = bound(n, n, "int8")  # one add per byte streamed
+    print(f"time pump {PUMP_SHAPE} x{PUMP_STEPS} passes: kernel {t_pump[0]:.4f} ms "
+          f"({n / t_pump[0] / 1e9:.1f} TB/s), plain {t_pump[1]:.4f} ms, library {PUMP_STEPS} x "
+          f"int32 sum {lib['pump']:.4f} ms, {PUMP_STEPS} x copy_ {lib['pump_copy']:.4f} ms, bound "
+          f"{bounds['pump'][0]:.4f} ms by {bounds['pump'][1]} [{card}]")
+    del w, w32, dst
+    torch.cuda.synchronize()
+    return {"err": err, "lib": lib, "bound": bounds,
+            "ms": {"flash": t_att, "mel": t_mel, "flash_plm": t_fwd, "flash_bwd": t_bwd,
+                   "pump": t_pump}}
 
 
 def _configs(full: bool):
@@ -202,13 +312,13 @@ def _configs(full: bool):
     if full:  # the slice: full width, as bench.py configures the JAX package
         return (c.MegaGConfig(mrte=c.MRTEConfig(use_flash=True)), c.MegaPLMConfig(),
                 c.MegaADMConfig(tc_emb_dim=512), c.VocosConfig())
-    return (  # small, with head dim 64 so the flash kernel takes it
+    return (  # small, with head dim 64 so the flash kernel takes it (MRTE, PLM prefill)
         c.MegaGConfig(
             mrte=c.MRTEConfig(mel_n_layer=2, mel_n_stack=1, mel_n_block=1, content_ff_dim=256,
                               content_n_layers=2, hidden_size=128, use_flash=True),
             vqpe=c.VQPEConfig(vq_bins=64, vq_dim=32), hidden_size=64, decoder_n_stack=1,
             decoder_n_block=1),
-        c.MegaPLMConfig(n_layers=2, n_heads=2, vq_dim=64, tc_latent_dim=128, vq_bins=64),
+        c.MegaPLMConfig(n_layers=2, n_heads=3, vq_dim=64, tc_latent_dim=128, vq_bins=64),
         c.MegaADMConfig(n_layers=2, n_heads=2, emb_dim=64, tc_latent_dim=128, tc_emb_dim=64),
         c.VocosConfig(dim=64, intermediate_dim=128, num_layers=2),
     )
@@ -221,6 +331,16 @@ def _models(full: bool, seed: int):
     gen = torch.Generator().manual_seed(seed)
     return (m.init_random_(m.MegaG(g_cfg), gen), m.init_random_(m.MegaPLM(plm_cfg), gen),
             m.init_random_(m.MegaADM(adm_cfg), gen), m.init_random_(m.Vocos(voc_cfg), gen))
+
+
+def _hifigan(full: bool, seed: int):
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch import models as m
+
+    cfg = c.HiFiGANConfig() if full else c.HiFiGANConfig(
+        upsample_initial_channel=64, upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
+        resblock_kernel_sizes=(3, 5), resblock_dilation_sizes=((1, 3), (1, 3)))
+    return m.init_random_(m.HiFiGAN(cfg), torch.Generator().manual_seed(seed))
 
 
 def phase_reference(dev: torch.device) -> None:
@@ -255,6 +375,41 @@ def phase_reference(dev: torch.device) -> None:
     print(f"reference fp32 small slice, card vs CPU: durations, codes, n_frames equal; "
           f"max_abs_err {errs}")
 
+    # the serving options: int8 PLM sampled at top-k 8 with the same injected
+    # noise on both devices, after a prefilled P = 8 prompt; HiFi-GAN
+    from megatts2_tpu_torch.quantization.weight_only import quantize_
+
+    B, P, V = 3, 8, 64
+    ptc = torch.from_numpy(rng.randn(B, P, 128).astype(np.float32))
+    pcodes = torch.from_numpy(rng.randint(0, V, (B, P)))
+    noise = torch.from_numpy(-np.log(-np.log(rng.uniform(1e-12, 1.0, (16, B, V)))).astype(np.float32))
+    for d in (torch.device("cpu"), dev):
+        g, plm, adm, _ = (x.to(d).eval() for x in _models(False, SEED + 5))
+        quantize_(plm, 8)
+        hifi = _hifigan(False, SEED + 6).to(d).eval()
+        mels = mel_spectrogram(wavs.to(d))
+        ph, ln = phone.to(d), lens.to(d)
+        kw = dict(quant=True, temperature=TEMPERATURE, top_k=8, gumbel=noise.to(d),
+                  prompt_tc=ptc.to(d), prompt_codes=pcodes.to(d))
+        with torch.inference_mode():
+            tc = g.mrte.tc_latent(ph, mels, ln)
+            dt = adm_infer(adm, tc)
+            dt = torch.where(torch.arange(20, device=d)[None] < ln[:, None], dt, 0)
+            codes = plm_infer(plm, max_pool_time(regulate_length(tc, dt, 128), 8), **kw)
+        wav, mel_hat, n = synthesize(g, plm, adm, hifi, ph, ln, mels, 128, quant=True,
+                                     plm_temperature=TEMPERATURE, plm_top_k=8,
+                                     plm_gumbel=kw["gumbel"], plm_prompt_tc=kw["prompt_tc"],
+                                     plm_prompt_codes=kw["prompt_codes"])
+        out[d.type] = [x.cpu() for x in (dt, codes, n, mel_hat, wav)]
+    (d0, c0, n0, h0, w0), (d1, c1, n1, h1, w1) = out["cpu"], out["cuda"]
+    check(torch.equal(d0, d1) and torch.equal(c0, c1) and torch.equal(n0, n1),
+          "reference serving: durations, codes or n_frames differ between card and CPU")
+    errs = {"mel_hat": (h0 - h1).abs().max().item(), "wav": (w0 - w1).abs().max().item()}
+    check(errs["mel_hat"] <= 1e-3 and errs["wav"] <= 1e-3, f"reference serving: {errs}")
+    print(f"reference fp32 small slice, int8 PLM, top-k 8 sampled with injected noise after a "
+          f"P={P} prompt, HiFi-GAN, card vs CPU: durations, codes, n_frames equal; "
+          f"max_abs_err {errs}")
+
 
 def _write_prompts(root: str) -> tuple[str, str]:
     """A symbol table and two ~4 s 16 kHz int16 prompt wavs under ``root``."""
@@ -280,20 +435,18 @@ def _read_prompt(path: str) -> np.ndarray:
     return y / np.max(np.abs(y))
 
 
-def phase_slice(dev: torch.device, card: str, root: str) -> dict:
-    from megatts2_tpu_torch.models import Megatts
+def _drive_slice(tts, label: str, card: str, root: str, wavs: str, sig: torch.Tensor,
+                 features=None) -> dict:
+    """One full-width configuration through ``__call__`` and
+    ``synthesize_batch``, kernel A's and B's counters set to 0 just before
+    and read just after; then checks, warm walls and stage walls."""
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel, mel_spectrogram
 
-    MAX_FRAMES, B = 512, 8
-    sym, wavs = _write_prompts(root)
-    t0 = time.perf_counter()
-    tts = Megatts(*_models(True, SEED), sym, max_frames=MAX_FRAMES, dtype=torch.bfloat16,
-                  device=dev)
-    print(f"slice: full-width models built and cast to bf16 in {time.perf_counter() - t0:.1f} s")
+    MAX_FRAMES, B = tts.max_frames, sig.shape[0]
+    dev = tts.device
     text = " ".join(["hello world"] * 16)  # 63 phones → Tp 64
     check(len(tts.phone_ids(text)) == 63, "bench text must give 63 phones")
-    sig = (torch.randn(B, 131000, generator=torch.Generator().manual_seed(SEED)) * 0.1)
 
     def batch(stage_times=None):
         t0 = time.perf_counter()
@@ -301,17 +454,19 @@ def phase_slice(dev: torch.device, card: str, root: str) -> dict:
         if stage_times is not None:
             torch.cuda.synchronize()
             stage_times["mel_frontend"] = time.perf_counter() - t0
-        return tts.synthesize_batch([text] * B, mels, stage_times=stage_times), mels
+        return tts.synthesize_batch([text] * B, mels, stage_times=stage_times,
+                                    prompt_features=features), mels
 
     torch.cuda.synchronize()
     mel.mel_spectrogram_cuda.launches = 0
     att.flash_attention_cuda.launches = 0
-    full = tts(wavs, "hello world", out_path=os.path.join(root, "test.wav"))
+    full = tts(wavs, "hello world", out_path=os.path.join(root, "test.wav"),
+               prompt_features=features)
     outs, mels = batch()
     torch.cuda.synchronize()
     launches = {"mel": mel.mel_spectrogram_cuda.launches, "flash": att.flash_attention_cuda.launches}
-    print(f"slice: launches on the main path {launches}")
-    check(launches["mel"] > 0 and launches["flash"] > 0, f"a kernel was not launched: {launches}")
+    print(f"slice {label}: launches on this path {launches}")
+    check(launches["mel"] > 0 and launches["flash"] > 0, f"{label}: a kernel was not launched: {launches}")
 
     prompt = _read_prompt(os.path.join(wavs, "a.wav"))
     gen_len = len(full) - len(prompt)
@@ -322,7 +477,8 @@ def phase_slice(dev: torch.device, card: str, root: str) -> dict:
     check(len(outs) == B and all(np.isfinite(w).all() for w in outs), "batch: non-finite wav")
     check(all(len(w) % 256 == 0 and 256 <= len(w) <= MAX_FRAMES * 256 for w in outs),
           f"batch lengths {[len(w) for w in outs]}")
-    print(f"slice: __call__ wrote {len(prompt)} prompt + {gen_len} generated samples; "
+    check(all(np.abs(w).max() <= 1.0 for w in outs), "batch: |wav| > 1")
+    print(f"slice {label}: __call__ wrote {len(prompt)} prompt + {gen_len} generated samples; "
           f"batch frames {[len(w) // 256 for w in outs]}")
 
     walls = []
@@ -334,10 +490,56 @@ def phase_slice(dev: torch.device, card: str, root: str) -> dict:
         walls.append(time.perf_counter() - t0)
     stages: dict = {}
     batch(stage_times=stages)
-    print(f"slice: warm synthesize_batch B={B} wall s {[round(w, 4) for w in walls]} [{card}]")
-    for name, s in stages.items():
-        print(f"slice: stage {name} {s * 1e3:.2f} ms [{card}]")
-    print(f"slice: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"slice {label}: warm synthesize_batch B={B} wall s {[round(w, 4) for w in walls]} [{card}]")
+    for name, sec in stages.items():
+        print(f"slice {label}: stage {name} {sec * 1e3:.2f} ms [{card}]")
+    print(f"slice {label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_slice(dev: torch.device, card: str, root: str) -> dict:
+    """The full-width slice three times: float PLM + Vocos (greedy), int8 PLM
+    + Vocos (greedy), int8 PLM + HiFi-GAN sampled at top-k 8 after a
+    prosody prompt of 32 codes shared by the batch."""
+    from megatts2_tpu_torch.models import Megatts
+
+    sym, wavs = _write_prompts(root)
+    sig = torch.randn(8, 131000, generator=torch.Generator().manual_seed(SEED)) * 0.1
+    rng = np.random.RandomState(SEED + 7)
+    features = (rng.randn(1, 32, 512).astype(np.float32), rng.randint(0, 1024, (1, 32)))
+    runs = (("bf16 Vocos", {}, False, None),
+            ("int8 Vocos", dict(quant_int8=True), False, None),
+            ("int8 HiFi-GAN top-k 8 prompt", dict(quant_int8=True, plm_temperature=TEMPERATURE,
+                                                   plm_top_k=8), True, features))
+    launches = {}
+    for label, kw, hifigan, feats in runs:
+        t0 = time.perf_counter()
+        g, plm, adm, vocos = _models(True, SEED)
+        tts = Megatts(g, plm, adm, _hifigan(True, SEED) if hifigan else vocos, sym,
+                      max_frames=512, dtype=torch.bfloat16, device=dev, **kw)
+        print(f"slice {label}: full-width models built and cast in {time.perf_counter() - t0:.1f} s")
+        launches[label] = _drive_slice(tts, label, card, root, wavs, sig, feats)
+        del tts, g, plm, adm, vocos
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bandwidth(card: str) -> int:
+    """The bandwidth tool at its full shapes; kernel D must launch."""
+    from megatts2_tpu_torch.ops import pump
+    from megatts2_tpu_torch.tools import bw_ceiling
+
+    torch.cuda.synchronize()
+    pump.pump_cuda.launches = 0
+    recs = bw_ceiling.run(device="cuda", card=card, emit=lambda line: print(f"bw_ceiling: {line}"))
+    torch.cuda.synchronize()
+    launches = pump.pump_cuda.launches
+    print(f"bw_ceiling: kernel D launches on this path {launches}")
+    check(launches > 0, "bw_ceiling: kernel D was not launched")
+    check([r["case"] for r in recs] == ["read_reduce", "dots", "pump_16", "pump_64", "pump_fit",
+                                         "decode"], f"bw_ceiling cases {[r['case'] for r in recs]}")
+    check(all(np.isfinite(v) and v > 0 for r in recs for k, v in r.items()
+              if isinstance(v, float) and k != "intercept_ms"), f"bw_ceiling: {recs}")
     return launches
 
 
@@ -491,34 +693,47 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
     k = phase_kernels(dev, card)
     phase_reference(dev)
     with tempfile.TemporaryDirectory() as root:
-        launches = phase_slice(dev, card, root)
+        slices = phase_slice(dev, card, root)
+        pump_launches = phase_bandwidth(card)
         phase_train_reference(dev)
         train = phase_train(dev, card, root)
+    synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash")}
+
+    def row(name, source, replaces, key, err_key, launches, shape, **extra):
+        ms, plain_ms = k["ms"][key]
+        return {"name": name, "route": "cuda", "source": f"megatts2_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": k["err"][err_key],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": k["bound"][key][0],
+                "bound_by": k["bound"][key][1], "library_ms": k["lib"][key], "shape": shape,
+                "card": card, **extra}
+
     record = {"kernels": [
-        {"name": "mel_spectrogram", "route": "cuda", "source": "megatts2_tpu_torch/csrc/mel.cu",
-         "replaces": "megatts2_tpu/ops/mel.py:190", "launches": launches["mel"],
-         "max_abs_err": k["err"]["mel"], "ms": k["ms"]["mel"][0], "plain_ms": k["ms"]["mel"][1],
-         "shape": "(8, 131000) fp32"},
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "megatts2_tpu_torch/csrc/flash_attn_fwd.cu",
-         "replaces": "megatts2_tpu/ops/attention_pallas.py:111",
-         "launches": launches["flash"] + train["flash"],
-         "launches_by_path": {"synthesis": launches["flash"], "train": train["flash"]},
-         "max_abs_err": k["err"]["flash"], "ms": k["ms"]["flash_plm"][0],
-         "plain_ms": k["ms"]["flash_plm"][1], "shape": "(8, 1024, 16, 64) bf16 causal, with stats",
-         "ms_mrte": k["ms"]["flash"][0], "plain_ms_mrte": k["ms"]["flash"][1]},
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "megatts2_tpu_torch/csrc/flash_attn_bwd.cu",
-         "replaces": "megatts2_tpu/ops/attention_pallas.py:161", "launches": train["flash_bwd"],
-         "max_abs_err": k["err"]["flash_bwd"], "ms": k["ms"]["flash_bwd"][0],
-         "plain_ms": k["ms"]["flash_bwd"][1], "shape": "(8, 1024, 16, 64) bf16 causal"},
+        row("mel_spectrogram", "mel.cu", "megatts2_tpu/ops/mel.py:190", "mel", "mel", synth["mel"],
+            "(8, 131000) fp32", library="torch.stft + filterbank matmul + log (composite)",
+            launches_by_path={label: s["mel"] for label, s in slices.items()}),
+        row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
+            "flash_plm", "flash", synth["flash"] + train["flash"],
+            "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
+            launches_by_path={**{label: s["flash"] for label, s in slices.items()},
+                              "train": train["flash"]},
+            ms_mrte=k["ms"]["flash"][0], plain_ms_mrte=k["ms"]["flash"][1],
+            bound_ms_mrte=k["bound"]["flash_mrte"][0], library_ms_mrte=k["lib"]["flash_mrte"]),
+        row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",
+            "flash_bwd", "flash_bwd", train["flash_bwd"], "(8, 1024, 16, 64) bf16 causal",
+            library="scaled_dot_product_attention backward"),
+        row("pump", "pump.cu", "tools/bw_ceiling.py:154", "pump", "pump", pump_launches,
+            f"{PUMP_SHAPE} int8 x {PUMP_STEPS} passes",
+            library=f"{PUMP_STEPS} x torch.sum(W.view(int32), dtype=int64)",
+            copy_ms=k["lib"]["pump_copy"]),
     ]}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,23 @@
 arrays (or anything ``np.asarray`` reads) and fills ``module`` in place:
 
 * MegaG takes the generator's variables ``{"params": ..., "vq_stats": ...}``;
-  MegaPLM, MegaADM and Vocos take their ``params``.
+  MegaPLM, MegaADM, HiFiGAN and Vocos take their ``params``.
 * Dense ``kernel`` (in, out) → Linear ``weight`` (out, in).
+* A ``quantize_tree`` leaf set ``{kernel_q, scale, bias}`` → the
+  ``QuantLinear`` that ``quantize_`` put in the Linear's place:
+  ``kernel_q`` (in, out) int8 or (in/2, out) packed uint8 → ``weight_q``
+  (out, in) or (out, in/2); ``scale`` and ``bias`` by name, fp32.
 * Conv ``kernel`` (k, in/groups, out) → Conv1d ``weight`` (out, in/groups, k).
+* HiFi-GAN ``TransposedConv1d`` ``kernel`` (k, in, out), stored flipped along
+  k (``training/convert.py``) → ConvTranspose1d ``weight`` (in, out, k) =
+  ``kernel[::-1].transpose(1, 2, 0)``.
 * LayerNorm ``scale``/``bias`` → ``weight``/``bias``; Embed ``embedding`` →
   ``weight``; other parameters and buffers by name.
 * Scan-stacked ``layers`` (leading layer axis) are unstacked into the
   ``ModuleList``; ``name_<i>`` submodules go to ``name[i]``.
-* ``w_q``, ``w_k``, ``w_v`` are concatenated into the decode layers' merged
-  ``qkv`` projection.
+* ``w_q``, ``w_k``, ``w_v`` are concatenated along the output axis into the
+  decode layers' merged ``qkv`` projection: kernels (float or quantized),
+  scales and biases.
 * The codebook's ``vq_stats`` (JAX ``vqpe.vq``) fill the buffers of ``g.vq``.
 
 It raises on any flax leaf it does not consume, on any shape mismatch, and
@@ -29,6 +37,7 @@ import torch
 from torch import nn
 
 from .models.megag import MegaG
+from .quantization.weight_only import QuantLinear
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 
@@ -45,8 +54,12 @@ def _assign(target: torch.Tensor, value: np.ndarray, path: str, filled: set) -> 
 def _leaf(module: nn.Module, key: str, value: np.ndarray, path: str, filled: set) -> None:
     if isinstance(module, nn.Linear) and key == "kernel":
         _assign(module.weight, value.T, path, filled)
+    elif isinstance(module, QuantLinear) and key == "kernel_q":
+        _assign(module.weight_q, value.T, path, filled)
     elif isinstance(module, nn.Conv1d) and key == "kernel":
         _assign(module.weight, value.transpose(2, 1, 0), path, filled)
+    elif isinstance(module, nn.ConvTranspose1d) and key == "kernel":
+        _assign(module.weight, value[::-1].transpose(1, 2, 0), path, filled)
     elif isinstance(module, nn.LayerNorm) and key == "scale":
         _assign(module.weight, value, path, filled)
     elif isinstance(module, nn.Embedding) and key == "embedding":
@@ -70,7 +83,7 @@ def _load(module: nn.Module, tree: dict, path: str, filled: set) -> None:
     tree = dict(tree)
     if "w_q" in tree and "qkv" in module._modules:  # merged decode projection
         parts = [tree.pop(n) for n in ("w_q", "w_k", "w_v")]
-        for key in ("kernel", "bias"):
+        for key in parts[0]:
             merged = np.concatenate([np.asarray(p[key]) for p in parts], axis=-1)
             _leaf(module.qkv, key, merged, f"{path}/w_qkv/{key}", filled)
     for key, value in tree.items():

@@ -1,4 +1,4 @@
-"""Frozen dataclass configs of the synthesis and PLM/ADM training slices.
+"""Frozen dataclass configs of the synthesis, serving and PLM/ADM training slices.
 
 Same names, fields and defaults as ``megatts2_tpu/config.py``; a test holds
 them field for field.  They are declared here rather than imported because
@@ -8,6 +8,7 @@ not need.  The YAML loaders stay with the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Tuple
 
 from . import HIFIGAN_HOP_LENGTH, HIFIGAN_MEL_CHANNELS, HIFIGAN_SR
 
@@ -96,6 +97,20 @@ class MegaADMConfig:
     @property
     def d_model(self) -> int:
         return self.emb_dim + self.tc_emb_dim
+
+
+@dataclass(frozen=True)
+class HiFiGANConfig:
+    """HiFi-GAN V1 generator at 16 kHz / hop 256."""
+
+    in_channels: int = HIFIGAN_MEL_CHANNELS
+    upsample_initial_channel: int = 512
+    upsample_rates: Tuple[int, ...] = (8, 8, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4)
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    lrelu_slope: float = 0.1
+    space_to_depth_ch: int = 32  # JAX layout option; no effect here
 
 
 @dataclass(frozen=True)

@@ -38,6 +38,7 @@ SIGNATURES = {
     "mt_flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _I, _P],
     "mt_flash_attn_bwd": [_P] * 11 + [_I] * 5
     + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P],
+    "mt_pump": [_P, _L, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -1,6 +1,7 @@
 from .adm import MegaADM, adm_infer
+from .hifigan import HiFiGAN
 from .megag import MegaG
-from .megatts import Megatts, init_random_, synthesize
+from .megatts import Megatts, init_random_, synthesize, vocode
 from .mrte import MRTE
 from .plm import MegaPLM, plm_infer
 from .vocos import Vocos

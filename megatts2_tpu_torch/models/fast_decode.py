@@ -1,7 +1,8 @@
-"""The PLM's and ADM's decoder layers: the KV-cached greedy decode loops
-(port of ``megatts2_tpu/models/fast_decode.py``) and the teacher-forced
-full-sequence forward that training runs (port of the linear-FF
-``TransformerEncoderLayer`` of ``megatts2_tpu/nn/transformer.py``).
+"""The PLM's and ADM's decoder layers: the KV-cached decode loops (port of
+``megatts2_tpu/models/fast_decode.py``: greedy or temperature / top-k
+sampling, optionally after a prompt prefilled into the caches) and the
+full-sequence forward that training and the prompt prefill run (port of
+the linear-FF ``TransformerEncoderLayer`` of ``megatts2_tpu/nn/transformer.py``).
 
 Each decoder layer holds ONE merged q/k/v projection (the bridge
 concatenates the JAX ``w_q``, ``w_k``, ``w_v`` at load time) and each layer
@@ -14,7 +15,11 @@ Numerics follow the JAX loop: LayerNorm statistics in fp32, q·k products
 accumulated in fp32 from compute-dtype operands, fp32 softmax, then P·V in
 the compute dtype.  A step attends to cache positions ``<= t`` only, which
 equals the JAX masked attention over the whole cache, since the masked
-positions there carry exactly zero weight.
+positions there carry exactly zero weight.  Every Linear goes through
+:func:`dense`, which is ``_dense``: a float layer multiplies in the compute
+dtype, a ``QuantLinear`` (int8 or packed int4,
+``quantization/weight_only.py``) accumulates in fp32 and applies its fp32
+scale and bias before the cast.
 
 The training forward computes in the dtype of its input over fp32 master
 weights, with the casts of flax's ``dtype=`` written out: a Dense casts its
@@ -37,10 +42,14 @@ from torch import nn
 from ..nn.transformer import attend
 from ..ops.attention import flash_attention
 from ..ops.masks import causal_mask, make_attn_mask
+from ..quantization.weight_only import QuantLinear, qdense
 
 
-def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=x.dtype)``: weight and bias cast to x's dtype."""
+def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=x.dtype)`` (weight and bias cast to x's dtype),
+    or ``QDense`` for a :class:`QuantLinear`."""
+    if isinstance(layer, QuantLinear):
+        return qdense(layer, x)
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
@@ -89,13 +98,17 @@ class DecoderLayer(nn.Module):
         causal: bool,
         rate: float,
         generator: Optional[torch.Generator],
+        ckv: Optional[torch.Tensor] = None,  # (B, L >= T, 2D) cache to prefill
     ) -> torch.Tensor:
-        """Teacher-forced pre-LN layer over the whole sequence:
+        """Pre-LN layer over the whole sequence:
         x + drop(out_proj(attn(norm1 x))), then
-        x + linear2(drop(relu(linear1(norm2 x))))."""
+        x + linear2(drop(relu(linear1(norm2 x)))).  With ``ckv`` the
+        sequence's k and v are written into its first T positions."""
         B, T, D = x.shape
         H = self.attn.n_heads
         qkv = dense(self.attn.qkv, layer_norm(self.norm1, x))  # (B, T, 3D): q, k, v side by side
+        if ckv is not None:
+            ckv[:, :T] = qkv[..., D:]
         q, k, v = (t.view(B, T, H, D // H) for t in qkv.split(D, dim=-1))
         if k_lens is not None:
             att = flash_attention(q, k, v, k_lens, causal)
@@ -111,7 +124,7 @@ class DecoderLayer(nn.Module):
         B, D = x.shape
         H = self.attn.n_heads
         dh = D // H
-        qkv = self.attn.qkv(self.norm1(x))
+        qkv = dense(self.attn.qkv, self.norm1(x))
         ckv[:, t] = qkv[:, D:]
         q = qkv[:, :D].view(B, H, 1, dh)
         k = ckv[:, : t + 1, :D].view(B, t + 1, H, dh).transpose(1, 2)
@@ -119,8 +132,8 @@ class DecoderLayer(nn.Module):
         logits = (q.float() @ k.float().transpose(-1, -2)) * dh**-0.5  # (B, H, 1, t+1)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         ctx = (probs @ v).reshape(B, D)
-        x = x + self.attn.out_proj(ctx)
-        return x + self.ff_linear2(F.relu(self.ff_linear1(self.norm2(x))))
+        x = x + dense(self.attn.out_proj, ctx)
+        return x + dense(self.ff_linear2, F.relu(dense(self.ff_linear1, self.norm2(x))))
 
 
 class DecoderStack(nn.Module):
@@ -140,10 +153,12 @@ class DecoderStack(nn.Module):
         causal: bool = False,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        caches: Optional[list[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """The whole sequence through every layer; the mask is built once from
         the lengths (padding, optionally causal) or, with ``use_flash``,
-        passed to the kernel as lengths."""
+        passed to the kernel as lengths.  ``caches`` (one per layer, as
+        :meth:`new_cache` makes them) receive the sequence's k and v."""
         B, T = x.shape[0], x.shape[1]
         mask = k_lens = None
         if x_lens is not None:
@@ -157,9 +172,14 @@ class DecoderStack(nn.Module):
             else:
                 mask = causal_mask(T, device=x.device)
         rate = self.dropout if train else 0.0
-        for layer in self.layers:
-            x = layer(x, mask, k_lens, causal, rate, generator)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, mask, k_lens, causal, rate, generator, None if caches is None else caches[i])
         return x
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the LayerNorms, which every cast takes."""
+        return self.layers[0].norm1.weight.dtype
 
     def new_cache(self, B: int, L: int, like: torch.Tensor) -> list[torch.Tensor]:
         """One zeroed (B, L, 2D) buffer per layer, in ``like``'s dtype and device."""
@@ -175,26 +195,66 @@ class DecoderStack(nn.Module):
 def plm_decode_step(
     model, tc_t: torch.Tensor, prev: torch.Tensor, caches: list[torch.Tensor], t: int
 ) -> torch.Tensor:
-    """One PLM step: tc_t (B, D_tc), previous code (B,) → logits (B, vq_bins) fp32."""
-    dtype = model.predict_layer.weight.dtype
-    x = torch.cat([tc_t.to(dtype), model.pc_embedding(prev)], dim=-1)
-    x = x + model.pe[t]
+    """One PLM step at absolute position t: tc_t (B, D_tc), previous code
+    (B,) → logits (B, vq_bins) fp32."""
+    dtype = model.plm.dtype
+    x = torch.cat([tc_t.to(dtype), model.pc_embedding(prev).to(dtype)], dim=-1)
+    x = x + model.pe[t].to(dtype)
     x = model.plm.step(x, caches, t)
-    return model.predict_layer(x).float()
+    return dense(model.predict_layer, x).float()
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard Gumbel noise as ``jax.random.gumbel`` draws it:
+    -log(-log(u)), u uniform in [tiny, 1), from ``generator`` (on ``device``)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def pick(logits: torch.Tensor, t: int, temperature: float, top_k: int,
+         generator: Optional[torch.Generator], gumbel: Optional[torch.Tensor]) -> torch.Tensor:
+    """The next code from fp32 logits (B, V): argmax when greedy; else
+    ``jax.random.categorical`` = argmax(logits / temperature + Gumbel noise),
+    the logits under the top_k-th largest set to -1e9 first.  The noise is
+    ``gumbel[t]`` when given (tests inject JAX's), else drawn."""
+    if temperature <= 0:
+        return logits.argmax(dim=-1)
+    lg = logits / temperature
+    if top_k and top_k < lg.shape[-1]:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = lg.masked_fill(lg < kth, -1e9)
+    noise = gumbel[t] if gumbel is not None else gumbel_noise(lg.shape, generator, lg.device)
+    return (lg + noise).argmax(dim=-1)
 
 
 @torch.inference_mode()
-def plm_fast_decode(model, tc_latent: torch.Tensor) -> torch.Tensor:
-    """Greedy prosody codes for every one of the T steps: tc_latent
-    (B, T, D_tc) → (B, T) int64.  The first input code is BOS."""
+def plm_fast_decode(
+    model,
+    tc_latent: torch.Tensor,  # (B, T, D_tc)
+    temperature: float = 0.0,
+    top_k: int = 0,
+    generator: Optional[torch.Generator] = None,
+    gumbel: Optional[torch.Tensor] = None,  # (T, B, vq_bins) injected noise
+    init_cache: Optional[list[torch.Tensor]] = None,  # per layer (B, >= start_pos + T, 2D)
+    start_pos: int = 0,  # first decode position (the prompt's length)
+    prev0: Optional[torch.Tensor] = None,  # (B,) first input code, BOS by default
+) -> torch.Tensor:
+    """Prosody codes for every one of the T steps: tc_latent (B, T, D_tc) →
+    (B, T) int64.  Greedy unless ``temperature > 0``, which needs a
+    ``generator`` on the model's device or injected ``gumbel`` noise.
+    ``init_cache``/``start_pos``/``prev0`` carry a prompt prefilled by
+    ``MegaPLM.prefill``."""
     B, T, _ = tc_latent.shape
-    dtype = model.predict_layer.weight.dtype
-    tc = tc_latent.to(dtype)
-    caches = model.plm.new_cache(B, T, tc)
-    prev = torch.full((B,), model.cfg.bos_id, dtype=torch.long, device=tc.device)
+    if temperature > 0 and generator is None and gumbel is None:
+        raise ValueError("sampling (temperature > 0) needs a generator or injected gumbel noise")
+    tc = tc_latent.to(model.plm.dtype)
+    caches = init_cache if init_cache is not None else model.plm.new_cache(B, start_pos + T, tc)
+    prev = prev0 if prev0 is not None else torch.full(
+        (B,), model.cfg.bos_id, dtype=torch.long, device=tc.device)
     codes = []
     for t in range(T):
-        prev = plm_decode_step(model, tc[:, t], prev, caches, t).argmax(dim=-1)
+        logits = plm_decode_step(model, tc[:, t], prev, caches, start_pos + t)
+        prev = pick(logits, t, temperature, top_k, generator, gumbel)
         codes.append(prev)
     return torch.stack(codes, dim=1)
 
@@ -203,18 +263,18 @@ def plm_fast_decode(model, tc_latent: torch.Tensor) -> torch.Tensor:
 def adm_decode_raw(model, tc_latents: torch.Tensor) -> torch.Tensor:
     """Raw duration predictions (B, T) fp32.  Each step feeds back the
     previous RAW float prediction (0 at the first step), as the reference
-    loop does."""
+    loop does.  Int8 / int4 layers take the quantized dense."""
     B, T, _ = tc_latents.shape
-    dtype = model.predict_layer.weight.dtype
+    dtype = model.adm.dtype
     tc = tc_latents.to(dtype)
     caches = model.adm.new_cache(B, T, tc)
     prev = torch.zeros(B, dtype=torch.float32, device=tc.device)
     out = []
     for t in range(T):
-        dt_emb = model.dt_linear_emb(prev[:, None].to(dtype))
-        x = torch.cat([model.tc_linear_emb(tc[:, t]), dt_emb], dim=-1) + model.pe[t]
+        dt_emb = dense(model.dt_linear_emb, prev[:, None].to(dtype))
+        x = torch.cat([dense(model.tc_linear_emb, tc[:, t]), dt_emb], dim=-1) + model.pe[t].to(dtype)
         x = model.adm.step(x, caches, t)
-        prev = model.predict_layer(x)[:, 0].float()
+        prev = dense(model.predict_layer, x)[:, 0].float()
         out.append(prev)
     return torch.stack(out, dim=1)
 

@@ -3,12 +3,14 @@
 
 prompt wavs → log-mel (kernel A on the card) → MRTE tc_latent (kernel B in
 the phone encoder when ``use_flash``) → ADM KV-cached decode → length
-regulation → 8× max-pool → PLM KV-cached decode → codebook lookup, ×8
-repeat → MegaG ConvNet decoder → Vocos, with the prompt audio prepended.
+regulation → 8× max-pool → PLM KV-cached decode (float or int8 / int4
+weights, greedy or temperature / top-k sampled, optionally after a prefilled
+prosody prompt) → codebook lookup, ×8 repeat → MegaG ConvNet decoder →
+HiFi-GAN or Vocos, with the prompt audio prepended.
 
 PyTorch runs eagerly, so ``synthesize`` is a plain function over modules;
 the true lengths ride beside the padded tensors and the host trims the
-waveform.  Only greedy decoding from BOS and the Vocos vocoder are ported.
+waveform.
 """
 from __future__ import annotations
 
@@ -22,17 +24,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from megatts2_tpu.text.symbol_table import SymbolTable
-from megatts2_tpu.text.tokenizer import TextTokenizer
-from megatts2_tpu.utils.audio import load_wav, peak_normalize, save_wav
-
 from .. import HIFIGAN_HOP_LENGTH, HIFIGAN_SR
 from ..ops import mel_spectrogram, regulate_length
 from ..quantization.vq import EuclideanCodebook
+from ..quantization.weight_only import cast_float_, quantize_
+from ..text.symbol_table import SymbolTable
+from ..text.tokenizer import TextTokenizer
+from ..utils.audio import load_wav, peak_normalize, save_wav
 from .adm import MegaADM, adm_infer
+from .hifigan import HiFiGAN
 from .megag import MegaG
 from .plm import MegaPLM, plm_infer
 from .vocos import Vocos
+
+Vocoder = HiFiGAN | Vocos
+
+
+def vocode(vocoder: Vocoder, mel: torch.Tensor) -> torch.Tensor:
+    """mel (B, T, 80) → waveform (B, T*hop) fp32, by the vocoder module's
+    type: :class:`HiFiGAN` (the reference's vocoder) or :class:`Vocos`."""
+    if not isinstance(vocoder, (HiFiGAN, Vocos)):
+        raise TypeError(f"vocode: no vocoder of type {type(vocoder).__name__}")
+    return vocoder(mel).float()
 
 
 def max_pool_time(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -69,17 +82,25 @@ def synthesize(
     g: MegaG,
     plm: MegaPLM,
     adm: MegaADM,
-    vocoder: Vocos,
+    vocoder: Vocoder,
     phone_tokens: torch.Tensor,  # (B, Tp) int, 0-padded
     phone_lens: torch.Tensor,  # (B,)
     mels_prompt: torch.Tensor,  # (B, Tm, 80)
     max_frames: int,
+    quant: bool = False,  # the PLM is quantized (quantize_)
+    plm_temperature: float = 0.0,  # > 0: sample prosody codes
+    plm_top_k: int = 0,
+    generator: Optional[torch.Generator] = None,  # on the device, when sampling
+    plm_prompt_tc: Optional[torch.Tensor] = None,  # (B, P, D) in-context prompt
+    plm_prompt_codes: Optional[torch.Tensor] = None,  # (B, P)
+    plm_gumbel: Optional[torch.Tensor] = None,  # (ceil(max_frames/8), B, vq_bins) injected noise
     stage_times: Optional[dict] = None,
 ):
     """Batched zero-shot synthesis.  Returns (wav (B, max_frames*hop) fp32,
     mel_hat (B, max_frames, 80), n_frames (B,)); callers trim with
-    n_frames*hop.  With ``stage_times`` a dict, each stage's wall seconds
-    are written into it (the device is synchronised between stages)."""
+    n_frames*hop.  The PLM options are :func:`plm_infer`'s.  With
+    ``stage_times`` a dict, each stage's wall seconds are written into it
+    (the device is synchronised between stages)."""
     clock = _StageClock(stage_times, phone_tokens.device)
 
     # 1. content/timbre latent (phone × mel-prompt cross attention)
@@ -96,7 +117,9 @@ def synthesize(
     # 3. length-regulate to frame rate; 4. 8× max-pool, AR prosody decode
     tc_expand = regulate_length(tc_latent, dt, max_frames)  # (B, Tf, H)
     tc_plm = max_pool_time(tc_expand, 8)
-    p_codes = plm_infer(plm, tc_plm.float())  # (B, Tf/8)
+    p_codes = plm_infer(plm, tc_plm.float(), quant=quant, temperature=plm_temperature,
+                        top_k=plm_top_k, generator=generator, prompt_tc=plm_prompt_tc,
+                        prompt_codes=plm_prompt_codes, gumbel=plm_gumbel)  # (B, Tf/8)
     clock("plm")
 
     # 5. codebook lookup, ×8 repeat, mel decode
@@ -105,7 +128,7 @@ def synthesize(
     clock("decoder")
 
     # 6. vocode
-    wav = vocoder(mel_hat.float()).float()
+    wav = vocode(vocoder, mel_hat.float())
     clock("vocoder")
     return wav, mel_hat, n_frames
 
@@ -121,12 +144,14 @@ def _cast_(module: nn.Module, dtype: torch.dtype, keep: Sequence[str] = ()) -> N
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill a freshly built model with seeded random weights, in place:
-    Linear and Conv1d weights N(0, 1/fan_in) with zero biases, embeddings
-    and codebooks N(0, 1); LayerNorms and layer scales keep their defaults.
-    Synthesis speed does not depend on the weights."""
+    Linear and (transposed) Conv1d weights N(0, 1/fan_in) with zero biases,
+    embeddings and codebooks N(0, 1); LayerNorms and layer scales keep their
+    defaults.  Synthesis speed does not depend on the weights."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+            # a transposed conv's output sums in_channels * k / stride taps
+            fan_in = (m.in_channels * m.kernel_size[0] // m.stride[0]
+                      if isinstance(m, nn.ConvTranspose1d) else m.weight[0].numel())
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator) / fan_in**0.5)
             if m.bias is not None:
                 m.bias.zero_()
@@ -142,36 +167,50 @@ class Megatts:
     ``test.wav`` with the prompt audio and the generated speech.
 
     The modules are moved to ``device`` and cast to ``dtype`` in place; the
-    codebook (``g.vq``) and the Vocos ``head`` stay fp32.  There is no CPU
-    fallback: ``device="cuda"`` without a CUDA device raises."""
+    codebook (``g.vq``) and the Vocos ``head`` stay fp32, HiFi-GAN is cast
+    whole.  ``quant_int8`` quantizes the PLM's Linear layers to int8 from
+    their fp32 weights before the cast, and their scales and biases stay
+    fp32; the ADM stays float, as in JAX.  ``plm_temperature`` > 0 samples
+    the prosody codes (``plm_top_k``) from a generator seeded with ``seed``.
+    There is no CPU fallback: ``device="cuda"`` without a CUDA device raises."""
 
     def __init__(
         self,
         g: MegaG,
         plm: MegaPLM,
         adm: MegaADM,
-        vocoder: Vocos,
+        vocoder: Vocoder,
         symbol_table: str,
         pinyin_dict_path: Optional[str] = None,
         max_frames: int = 2048,
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        quant_int8: bool = False,
+        plm_temperature: float = 0.0,
+        plm_top_k: int = 0,
+        seed: int = 0,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Megatts: device 'cuda' requested but no CUDA device is available")
         for m in (g, plm, adm, vocoder):
             m.to(self.device).eval()
+        if quant_int8:
+            quantize_(plm, 8)
         _cast_(g, dtype, keep=("vq",))
-        plm.to(dtype)
+        cast_float_(plm, dtype)
         adm.to(dtype)
-        _cast_(vocoder, dtype, keep=("head",))
+        _cast_(vocoder, dtype, keep=("head",) if isinstance(vocoder, Vocos) else ())
         self.g, self.plm, self.adm, self.vocoder = g, plm, adm, vocoder
         self.tt = TextTokenizer(pinyin_dict_path)
         st = SymbolTable.from_file(symbol_table)
         self.token2idx = {s: i for i, s in enumerate(st.symbols)}
         self.max_frames = max_frames
         self.dtype = dtype
+        self.quant_int8 = quant_int8
+        self.plm_temperature = float(plm_temperature)
+        self.plm_top_k = int(plm_top_k)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def phone_ids(self, text: str) -> np.ndarray:
         """G2P → symbol ids.  Separators ('_'/'-') absent from the symbol
@@ -184,15 +223,36 @@ class Megatts:
         ]
         return np.array(ids, dtype=np.int64)
 
+    def _synthesize(self, phone: torch.Tensor, lens: torch.Tensor, mels: torch.Tensor,
+                    prompt_features: Optional[tuple], stage_times: Optional[dict]):
+        """``synthesize`` with this instance's models and PLM options;
+        ``prompt_features`` (tc (1|B, P, D), codes (1|B, P)) are broadcast
+        to the batch."""
+        prompt = {}
+        if prompt_features is not None:
+            B = phone.shape[0]
+            tc, codes = (torch.as_tensor(np.asarray(x)).to(self.device) for x in prompt_features)
+            prompt = dict(plm_prompt_tc=tc.float().expand(B, *tc.shape[1:]),
+                          plm_prompt_codes=codes.long().expand(B, *codes.shape[1:]))
+        return synthesize(
+            self.g, self.plm, self.adm, self.vocoder, phone, lens, mels, self.max_frames,
+            quant=self.quant_int8, plm_temperature=self.plm_temperature,
+            plm_top_k=self.plm_top_k, generator=self.generator, stage_times=stage_times,
+            **prompt,
+        )
+
     def synthesize_batch(
         self,
         texts: list,
         mels_prompt,  # (B, Tm, 80) per-utterance prompt mels, numpy or tensor
         stage_times: Optional[dict] = None,
+        prompt_features: Optional[tuple] = None,  # (tc (1|B, P, D), codes (1|B, P))
     ) -> list:
         """Batched synthesis: phone sequences padded to a multiple of 16,
         one cascade for the whole batch, per-utterance trimmed waveforms.
-        ``stage_times`` as in :func:`synthesize`."""
+        ``stage_times`` as in :func:`synthesize`; ``prompt_features`` is an
+        in-context prosody prompt of one length, one shared by the batch
+        when its leading dim is 1."""
         ids = [self.phone_ids(t) for t in texts]
         B = len(ids)
         Tp = -(-max(len(i) for i in ids) // 16) * 16
@@ -201,18 +261,20 @@ class Megatts:
             phone[b, : len(seq)] = seq
         lens = np.asarray([len(i) for i in ids], np.int64)
         mels = torch.as_tensor(mels_prompt, dtype=torch.float32).to(self.device)
-        wav, _, n_frames = synthesize(
-            self.g, self.plm, self.adm, self.vocoder,
+        wav, _, n_frames = self._synthesize(
             torch.from_numpy(phone).to(self.device), torch.from_numpy(lens).to(self.device),
-            mels, self.max_frames, stage_times=stage_times,
+            mels, prompt_features, stage_times,
         )
         wav = wav.cpu().numpy()
         n = n_frames.cpu().numpy()
         return [wav[b, : int(n[b]) * HIFIGAN_HOP_LENGTH] for b in range(B)]
 
-    def __call__(self, wavs_dir: str, text: str, out_path: str = "test.wav") -> np.ndarray:
+    def __call__(self, wavs_dir: str, text: str, out_path: str = "test.wav",
+                 prompt_features: Optional[tuple] = None) -> np.ndarray:
         """One mel per prompt file (each reflect-padded on its own), joined
-        along time; the generated speech is appended to the first prompt."""
+        along time; the generated speech is appended to the first prompt.
+        ``prompt_features`` (tc (1, P, D), codes (1, P)) is an optional
+        in-context prosody prompt for the PLM."""
         wavs = sorted(glob.glob(os.path.join(wavs_dir, "*.wav")))
         mels = []
         prompt_wav = None
@@ -225,9 +287,7 @@ class Megatts:
 
         ids = torch.from_numpy(self.phone_ids(text))[None].to(self.device)
         lens = torch.tensor([ids.shape[1]], device=self.device)
-        wav, _, n_frames = synthesize(
-            self.g, self.plm, self.adm, self.vocoder, ids, lens, mel_prompt, self.max_frames
-        )
+        wav, _, n_frames = self._synthesize(ids, lens, mel_prompt, prompt_features, None)
         n = int(n_frames[0]) * HIFIGAN_HOP_LENGTH
         gen = wav[0, :n].cpu().numpy()
         full = np.concatenate([prompt_wav, gen]) if prompt_wav is not None else gen

@@ -64,16 +64,25 @@ def _create_state(model: nn.Module, tcfg: TrainConfig, device) -> TrainState:
     return TrainState(model, opt, sched, gen)
 
 
-def create_plm_state(cfg: MegaPLMConfig, tcfg: TrainConfig, device="cpu") -> TrainState:
-    """A MegaPLM with seeded random weights on ``device``, fp32, and its AdamW."""
-    with torch.no_grad():
-        return _create_state(MegaPLM(cfg), tcfg, torch.device(device))
+def _train_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("training: device 'cuda' requested but no CUDA device is available")
+    return device
 
 
-def create_adm_state(cfg: MegaADMConfig, tcfg: TrainConfig, device="cpu") -> TrainState:
-    """A MegaADM with seeded random weights on ``device``, fp32, and its AdamW."""
+def create_plm_state(cfg: MegaPLMConfig, tcfg: TrainConfig, device="cuda") -> TrainState:
+    """A MegaPLM with seeded random weights on ``device``, fp32, and its AdamW.
+    The card unless the caller asks for the CPU; raises without a card."""
     with torch.no_grad():
-        return _create_state(MegaADM(cfg), tcfg, torch.device(device))
+        return _create_state(MegaPLM(cfg), tcfg, _train_device(device))
+
+
+def create_adm_state(cfg: MegaADMConfig, tcfg: TrainConfig, device="cuda") -> TrainState:
+    """A MegaADM with seeded random weights on ``device``, fp32, and its AdamW.
+    The card unless the caller asks for the CPU; raises without a card."""
+    with torch.no_grad():
+        return _create_state(MegaADM(cfg), tcfg, _train_device(device))
 
 
 def _on(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:

@@ -12,13 +12,15 @@ max) and rtol 1e-5 (row sum), fp32 sums in another order; the backward
 and ds are rounded to bf16 before their products and a rounding that flips
 moves a term by one bf16 ulp; log-mel atol 1e-3, because a direct DFT and an
 FFT sum 1024 terms in different orders and log(clamp(., 1e-5)) magnifies
-that near the clamp."""
+that near the clamp; the copy pump (kernel D) exactly, since both its
+outputs are integer sums."""
 import numpy as np
 import pytest
 import torch
 
 from megatts2_tpu_torch.ops import attention as tatt
 from megatts2_tpu_torch.ops import mel as tmel
+from megatts2_tpu_torch.ops import pump as tpump
 
 pytestmark = pytest.mark.gpu
 
@@ -174,3 +176,27 @@ def test_mel_kernel_matches_plain(cuda, shape):
 def test_mel_kernel_on_silence_hits_the_clamp(cuda):
     got = tmel.mel_spectrogram_cuda(torch.zeros(1, 3000, device=cuda))
     np.testing.assert_allclose(got.cpu().numpy(), np.log(1e-5), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 256), (144, 256, 4096)])
+@pytest.mark.parametrize("steps", [1, 2, 16])
+def test_pump_kernel_matches_plain(cuda, shape, steps):
+    g = torch.Generator().manual_seed(6)
+    w = torch.randint(-127, 127, shape, generator=g, dtype=torch.int8).to(cuda)
+    before = tpump.pump_cuda.launches
+    head, total = tpump.pump_cuda(w, steps)
+    torch.cuda.synchronize()
+    assert tpump.pump_cuda.launches == before + 1
+    want_head, want_total = tpump.pump_plain(w, steps)
+    assert head.shape == (1, 1) and head.dtype == torch.float32 and total.dtype == torch.int64
+    assert torch.equal(head, want_head) and torch.equal(total, want_total)
+
+
+def test_pump_kernel_rejects_what_it_does_not_take(cuda):
+    w = torch.zeros(3, 16, 256, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpump.pump_cuda(w.transpose(1, 2), 1)
+    with pytest.raises(ValueError, match="int8"):
+        tpump.pump_cuda(w.float(), 1)
+    with pytest.raises(ValueError, match="cols"):
+        tpump.pump_cuda(torch.zeros(3, 16, 64, dtype=torch.int8, device=cuda), 1)

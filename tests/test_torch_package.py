@@ -18,8 +18,8 @@ from megatts2_tpu_torch import config as tcfg
 from megatts2_tpu_torch.bridge import load_flax_params
 
 KEY = jax.random.PRNGKey(0)
-CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "MegaPLMConfig", "MegaADMConfig", "VocosConfig",
-           "TrainConfig"]
+CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "MegaPLMConfig", "MegaADMConfig", "HiFiGANConfig",
+           "VocosConfig", "TrainConfig"]
 
 
 def _default(f):
@@ -122,13 +122,15 @@ def test_bridge_merges_qkv_for_the_decode_layers():
 
 def test_port_imports_no_jax_flax_or_yaml():
     """A fresh interpreter imports every module of the package; none of
-    them may pull in JAX, flax or PyYAML."""
+    them may pull in JAX, flax, PyYAML or any module of the JAX package
+    ``megatts2_tpu`` (the port keeps its own copies)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatts2_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'megatts2_tpu'))\n"
         "assert len(names) > 20, names\n"
         "assert not bad, bad\n"
     )

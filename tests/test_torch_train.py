@@ -80,7 +80,7 @@ def _jax_run(create, make_step, cfg, batch, n, flash=True, **kw):
 
 
 def _torch_state(create, cfg, params0):
-    st = create(_torch_cfg(cfg), TCFG)
+    st = create(_torch_cfg(cfg), TCFG, device="cpu")
     load_flax_params(st.model, params0)
     return st
 
@@ -165,7 +165,7 @@ def test_plm_params_after_adamw_steps_match_jax():
 
 def test_plm_eos_only_batch_has_zero_loss():
     cfg = _torch_cfg(_plm_cfg())
-    st = create_plm_state(cfg, TCFG)
+    st = create_plm_state(cfg, TCFG, device="cpu")
     batch = {"tc_latents": np.zeros((2, 6, 8), np.float16),
              "p_codes": np.full((2, 7), cfg.eos_id, np.int32), "lens": np.zeros((2,), np.int32)}
     step, evaluate = make_plm_train_step(cfg, TCFG)
@@ -222,7 +222,7 @@ def test_adm_step_metrics_grads_and_params_match_jax(mask_padding):
 def test_adm_padding_counts_unless_masked():
     """The reference's quirk: padded positions enter the summed MSE."""
     cfg = _torch_cfg(_adm_cfg())
-    st = create_adm_state(cfg, TCFG)
+    st = create_adm_state(cfg, TCFG, device="cpu")
     batch = _adm_batch(lens=(8, 2, 1))
     full = float(make_adm_train_step(cfg, TCFG)[1](st, batch)["loss_sum"])
     masked = float(make_adm_train_step(cfg, TCFG, mask_padding=True)[1](st, batch)["loss_sum"])

@@ -68,7 +68,7 @@ def test_adamw_steps_match_optax():
 
 
 def _first_loss(gen_seed, train=True):
-    st = create_plm_state(PLM, TCFG)
+    st = create_plm_state(PLM, TCFG, device="cpu")
     st.generator.manual_seed(gen_seed)
     step, evaluate = make_plm_train_step(PLM, TCFG)
     out = step(st, _batch()) if train else evaluate(st, _batch())
@@ -83,7 +83,7 @@ def test_dropout_follows_its_generator():
 
 
 def test_run_training_logs_at_its_cadence(tmp_path):
-    st = create_plm_state(PLM, TCFG)
+    st = create_plm_state(PLM, TCFG, device="cpu")
     step, evaluate = make_plm_train_step(PLM, TCFG)
     batches = [_batch(i) for i in range(3)]
     out = run_training("plm", st, step, lambda epoch: batches, max_steps=7,
@@ -102,7 +102,7 @@ def test_run_training_logs_at_its_cadence(tmp_path):
 
 
 def test_run_training_refuses_checkpoints_and_empty_loaders(tmp_path):
-    st = create_plm_state(PLM, TCFG)
+    st = create_plm_state(PLM, TCFG, device="cpu")
     step, _ = make_plm_train_step(PLM, TCFG)
     with pytest.raises(NotImplementedError, match="checkpoint"):
         run_training("plm", st, step, lambda e: [_batch()], 1, log_dir=str(tmp_path),
@@ -116,7 +116,7 @@ def test_plm_training_and_decode_share_weights():
     those codes again: one set of parameters serves both."""
     from megatts2_tpu_torch.models import plm_infer
 
-    st = create_plm_state(PLM, TCFG)
+    st = create_plm_state(PLM, TCFG, device="cpu")
     step, _ = make_plm_train_step(PLM, TCFG)
     for i in range(3):
         step(st, _batch(i))
@@ -132,7 +132,7 @@ def test_adm_training_and_decode_share_weights():
     from megatts2_tpu_torch.models.fast_decode import adm_decode_raw
 
     cfg = MegaADMConfig(n_layers=2, n_heads=2, emb_dim=8, tc_latent_dim=8, tc_emb_dim=8)
-    st = create_adm_state(cfg, TCFG)
+    st = create_adm_state(cfg, TCFG, device="cpu")
     tc = torch.from_numpy(np.random.RandomState(10).randn(2, 9, 8).astype(np.float32))
     raw = adm_decode_raw(st.model, tc)
     dur = torch.cat([torch.zeros(2, 1), raw], dim=1)[..., None]
