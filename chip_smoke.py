@@ -11,12 +11,20 @@ Phases, each printing a line; any failure raises and exits non-zero:
    the slices' shapes and beyond, in fp32 and bf16: kernel A, kernel B and
    its row statistics, kernel C (the attention backward) at the PLM's
    training shape (8, 1024, 16, 64) causal with mixed lengths that include
-   0, and at (2, 300, 4, 128) non-causal, kernel D (the copy pump) at
-   (3, 16, 256) and the tool's (144, 256, 4096) for 1, 2 and 16 passes,
-   both outputs exact; then kernel and plain timed in turns (plain, kernel,
-   kernel, plain) with CUDA events, each beside its bound (the larger of
-   its bytes over 3.35 TB/s and its operations over the peak rate of their
-   type) and one PyTorch library call that computes the same function.
+   0, and at (2, 300, 4, 128) non-causal; kernels B (with and without
+   statistics) and C on their bf16 tensor-core path at its edges (Tq of 1,
+   32, 300 and 1000 at head dim 64, (3, 77, 4, 128); k_lens holding 0 and
+   1; causal and not), each line beside the SIMT path's error on the same
+   inputs, and on views off TMA's 16-byte rule (copied and counted);
+   kernel D (the copy pump) at (3, 16, 256) and the tool's (144, 256,
+   4096) for 1, 2 and 16 passes, both outputs exact; then kernel and plain
+   timed in turns (plain, kernel, kernel, plain) with CUDA events, each
+   beside its bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the peak rate of their type) and one PyTorch library
+   call that computes the same function; the attention kernels also beside
+   their SIMT path, with the achieved TFLOP/s, the backward's two passes
+   from a ``torch.profiler`` trace, and each tensor-core kernel's HGMMA
+   count (``cuobjdump -sass``) and spills (the build's ptxas log).
 4. reference — small fp32 slices on the card (kernels) against the same
    modules on the CPU (plain versions): greedy from BOS with Vocos, then an
    int8 PLM sampled at top-k 8 with injected noise after a prefilled
@@ -28,7 +36,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    max_frames=512), three times: the float PLM with Vocos, greedy; the int8
    PLM with Vocos, greedy; the int8 PLM with HiFi-GAN, sampled at top-k 8
    after a prosody prompt.  Before each, kernel A's and kernel B's launch
-   counters are set to 0; after it, both must be > 0.  Then warm wall
+   counters are set to 0; after it, both must be > 0, and on the prompted
+   run kernel B's tensor-core counter too (the prefill).  Then warm wall
    times of the batch and of each cascade stage.
 6. bandwidth — ``megatts2_tpu_torch.tools.bw_ceiling`` at its full shapes:
    read_reduce, dots, kernel D at 16 and 64 passes and their fit, and the
@@ -41,8 +50,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
 8. train — the full-width PLM in bf16 over fp32 master weights, driven by
    ``training.run_training`` for 6 steps on one synthetic batch of B=8,
    L=1024 in ``PLMBatchBuilder``'s format with mixed lengths.  The forward
-   and backward launch counters are set to 0 just before and must be > 0
-   after; losses finite and the eval loss falling.  Then the warm step's
+   and backward launch counters and their tensor-core counters are set to
+   0 just before and must be > 0 after; losses finite and the eval loss
+   falling.  Then the warm step's
    ms, tokens/s and peak device memory; a few ADM steps at
    ``MegaADMConfig(tc_emb_dim=512)``, B=8, T=64; and a greedy ``plm_infer``
    from the trained weights that the teacher-forced forward agrees with.
@@ -55,9 +65,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -147,6 +160,136 @@ def phase_build() -> None:
     load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {library_path()}")
 
+# the tensor-core path's edges (bf16): (B, Tq, H, Dh, Tk), Tq of 1, 32, 300
+# and 1000 inside 64-row tiles at Dh 64, and Dh 128
+TC_EDGES = ((4, 1, 2, 64, 70), (4, 32, 2, 64, 32), (4, 300, 2, 64, 300), (4, 1000, 2, 64, 1000),
+            (3, 77, 4, 128, 77))
+
+
+def _rel_errs(got, ref) -> list[tuple[float, float]]:
+    """(max abs error, largest reference magnitude) of each gradient."""
+    return [((a.float() - b.float()).abs().max().item(), b.float().abs().max().item())
+            for a, b in zip(got, ref)]
+
+
+def tc_edges(dev: torch.device, gen: torch.Generator, err: dict) -> None:
+    """Kernels B (with and without statistics) and C on the tensor-core path
+    at its edges, k_lens holding 0 and 1, causal and not, against the plain
+    versions; each line also gives the SIMT path's error on the same inputs
+    (the PR 1/2 kernels).  Then views off the TMA rule: copied, counted, right."""
+    from megatts2_tpu_torch.ops import attention as att
+
+    bf = torch.bfloat16
+    for B, Tq, H, Dh, Tk in TC_EDGES:
+        q, g = (torch.randn(B, Tq, H, Dh, generator=gen).to(dev, bf) for _ in range(2))
+        k, v = (torch.randn(B, Tk, H, Dh, generator=gen).to(dev, bf) for _ in range(2))
+        lens = torch.tensor([Tk, 0, 1, Tk // 3 + 1][:B], dtype=torch.int32, device=dev)
+        for causal in (False, True):
+            ref, pm, pl = att.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
+            line = []
+            for simt in (False, True):
+                out = att.flash_attention_cuda(q, k, v, lens, causal, simt=simt)
+                o2, m, l = att.flash_attention_cuda(q, k, v, lens, causal, return_stats=True, simt=simt)
+                e = max((x.float() - ref.float()).abs().max().item() for x in (out, o2))
+                em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
+                grads = att.flash_attention_bwd_cuda(q, k, v, lens, causal, g, m, l, simt=simt)
+                ge = _rel_errs(grads, att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l))
+                line.append(f"{'simt (PR 1/2)' if simt else 'tensor cores'}: fwd {e:.3g}, m {em:.3g}, "
+                            f"l rel {el:.3g}, " + ", ".join(f"{n} {a:.3g}/{t:.3g}" for n, (a, t)
+                                                           in zip(("dq", "dk", "dv"), ge)))
+                check(all(bool(torch.isfinite(x).all()) for x in (out, o2, *grads)),
+                      f"tc edge {(B, Tq, H, Dh, Tk)}: non-finite")
+                if simt:
+                    continue
+                check(e <= ATOL_ATT[bf] and em <= ATOL_M and el <= RTOL_L,
+                      f"tc edge {(B, Tq, H, Dh, Tk)} causal={causal}: fwd {e}, m {em}, l {el}")
+                check(all(a <= REL_BWD[bf] * t for a, t in ge),
+                      f"tc edge {(B, Tq, H, Dh, Tk)} causal={causal}: bwd {ge}")
+                err["flash"] = max(err["flash"], e)
+                err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+            print(f"kernel flash tc edge (B,Tq,H,Dh,Tk)={(B, Tq, H, Dh, Tk)} bf16 lens {lens.tolist()} "
+                  f"causal={causal}: max_abs_err {'; '.join(line)} (atol {ATOL_ATT[bf]}, "
+                  f"bwd rel {REL_BWD[bf]})")
+
+    # views TMA cannot read: a base 2 bytes past a 16-byte boundary
+    def misaligned(x):
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+        view = buf.as_strided(x.shape, x.stride(), storage_offset=1)
+        view.copy_(x)
+        return view
+
+    q, k, v, g = (torch.randn(2, 70, 2, 64, generator=gen).to(dev, bf) for _ in range(4))
+    lens = torch.tensor([70, 0], dtype=torch.int32, device=dev)
+    fc, bc = att.flash_attention_cuda.layout_copies, att.flash_attention_bwd_cuda.layout_copies
+    out, m, l = att.flash_attention_cuda(misaligned(q), k, v, lens, True, return_stats=True)
+    grads = att.flash_attention_bwd_cuda(q, misaligned(k), v, lens, True, misaligned(g), m, l)
+    copies = (att.flash_attention_cuda.layout_copies - fc, att.flash_attention_bwd_cuda.layout_copies - bc)
+    e = (out.float() - att.flash_attention_plain(q, k, v, lens, True).float()).abs().max().item()
+    ge = _rel_errs(grads, att.flash_attention_bwd_plain(q, k, v, lens, True, g, m, l))
+    check(copies[0] > 0 and copies[1] > 0, f"misaligned views were not copied: {copies}")
+    check(e <= ATOL_ATT[bf] and all(a <= REL_BWD[bf] * t for a, t in ge), f"misaligned: {e}, {ge}")
+    print(f"kernel flash tc misaligned views (base + 2 bytes): layout copies fwd {copies[0]}, bwd "
+          f"{copies[1]}; max_abs_err fwd {e:.3g}, bwd {', '.join(f'{a:.3g}/{t:.3g}' for a, t in ge)}")
+    torch.cuda.synchronize()
+
+
+TC_KERNEL = re.compile(r"\d(flash_\w+?_tc_kernel)ILi(\d+)")  # in a mangled name
+
+
+def sass_hgmma() -> dict:
+    """HGMMA instructions in each tensor-core kernel of the built library,
+    from ``cuobjdump -sass``."""
+    from megatts2_tpu_torch.csrc import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = TC_KERNEL.search(line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def ptxas_report() -> dict:
+    """ptxas's register and spill report of each tensor-core kernel, from
+    the build's log."""
+    from megatts2_tpu_torch.csrc import build
+
+    lines = (build.library_path().parent / "build.log").read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = TC_KERNEL.search(line)
+        if "Function properties for" in line and m:
+            out[f"{m.group(1)}<{m.group(2)}>"] = f"{lines[i + 1].strip()}; {lines[i + 2].strip()}"
+    return out
+
+
+def device_breakdown(fn, n: int = 5) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name, from a
+    ``torch.profiler`` trace of n warm calls ({} if the trace has no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        m = re.search(r"(flash_\w+?_kernel)<(\d+)", ev.key)
+        if us and m:
+            out[f"{m.group(1)}<{m.group(2)}>"] = us / n / 1e3
+    return out
+
 
 def phase_kernels(dev: torch.device, card: str) -> dict:
     from megatts2_tpu_torch.ops import attention as att
@@ -233,6 +376,7 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                   f"max_abs_err/max {', '.join(errs)} (rel {REL_BWD[dtype]}); "
                   f"stats m {em:.3g} (atol {ATOL_M}), l rel {el:.3g} (rtol {RTOL_L})")
     torch.cuda.synchronize()
+    tc_edges(dev, gen, err)
 
     # timing at the PLM's training shape: (8, 1024, 16, 64) bf16 causal, mixed lengths
     q, k, v, g = (torch.randn(8, 1024, 16, 64, generator=gen).to(dev, torch.bfloat16)
@@ -243,6 +387,12 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                      lambda: att.flash_attention_cuda(q, k, v, lens, True, return_stats=True))
     t_bwd = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, True, g, m, l),
                      lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
+    # the PR 1/2 (SIMT) kernels on the same inputs, for the before/after lines
+    simt = {"flash_plm": cuda_ms(lambda: att.flash_attention_cuda(q, k, v, lens, True,
+                                                                  return_stats=True, simt=True)),
+            "flash_bwd": cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l,
+                                                                      simt=True))}
+    split = device_breakdown(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
     mask = sdpa_mask(lens, 1024, True)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -255,7 +405,9 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     bounds["flash_plm"] = bound(4 * q.numel() * 2 + stats, 4 * 64 * pairs, "bf16")
     # recompute Q K^T, then dP = g V^T, dV = P^T g, dQ = dS K, dK = dS^T Q
     bounds["flash_bwd"] = bound(7 * q.numel() * 2 + stats, 10 * 64 * pairs, "bf16")
+    flops = {"flash_plm": 4 * 64 * pairs, "flash_bwd": 10 * 64 * pairs}
     # the PLM prompt prefill: causal over P prompt codes, every row of length P
+    times = {}
     for P in (32, 256):
         q, k, v = (torch.randn(8, P, 16, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
         plen = torch.full((8,), P, dtype=torch.int32, device=dev)
@@ -267,14 +419,37 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                           lambda: att.flash_attention_cuda(q, k, v, plen, True))
         t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
-        b = bound(4 * q.numel() * 2, 4 * 64 * attn_pairs([P] * 8, P, 16, True), "bf16")
-        print(f"time flash_attention prefill (8,{P},16,64) bf16 causal: kernel {tk:.4f} ms, plain "
-              f"{tp:.4f} ms, library (SDPA) {t_lib:.4f} ms, bound {b[0]:.4f} ms by {b[1]}; "
-              f"max_abs_err {e:.3g} [{card}]")
-    for name, (tk, tp), key in (("flash_attention +stats (8,1024,16,64) bf16 causal", t_fwd, "flash_plm"),
-                                ("flash_attention_bwd (8,1024,16,64) bf16 causal", t_bwd, "flash_bwd")):
-        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, library (SDPA) {lib[key]:.4f} ms, "
-              f"bound {bounds[key][0]:.4f} ms by {bounds[key][1]} [{card}]")
+        key = f"prefill_{P}"
+        simt[key] = cuda_ms(lambda: att.flash_attention_cuda(q, k, v, plen, True, simt=True))
+        flops[key] = 4 * 64 * attn_pairs([P] * 8, P, 16, True)
+        b = bound(4 * q.numel() * 2, flops[key], "bf16")
+        times[key], lib[key], bounds[key] = (tk, tp), t_lib, b
+        print(f"time flash_attention prefill (8,{P},16,64) bf16 causal: kernel {tk:.4f} ms, simt "
+              f"(PR 1/2) {simt[key]:.4f} ms, plain {tp:.4f} ms, library (SDPA) {t_lib:.4f} ms, bound "
+              f"{b[0]:.4f} ms by {b[1]}; max_abs_err {e:.3g} [{card}]")
+    times.update({"flash_plm": t_fwd, "flash_bwd": t_bwd})
+    for name, key in (("flash_attention +stats (8,1024,16,64) bf16 causal", "flash_plm"),
+                      ("flash_attention_bwd (8,1024,16,64) bf16 causal", "flash_bwd")):
+        tk, tp = times[key]
+        print(f"time {name}: kernel {tk:.4f} ms, simt (PR 1/2) {simt[key]:.4f} ms, plain {tp:.4f} ms, "
+              f"library (SDPA) {lib[key]:.4f} ms, bound {bounds[key][0]:.4f} ms by {bounds[key][1]} [{card}]")
+    # achieved rate: the kept (query, key) pairs times the operations a pair
+    # needs (4 Dh forward; 10 Dh backward: the five products), over the time
+    tflops = {}
+    for key in ("prefill_32", "prefill_256", "flash_plm", "flash_bwd"):
+        tflops[key] = flops[key] / times[key][0] / 1e9
+        print(f"tflops {key}: tensor cores {tflops[key]:.1f} TFLOP/s, simt (PR 1/2) "
+              f"{flops[key] / simt[key] / 1e9:.1f}, library (SDPA) {flops[key] / lib[key] / 1e9:.1f} "
+              f"({flops[key] / 1e9:.2f} GFLOP; peak 989) [{card}]")
+    print(f"trace flash_attention_bwd (8,1024,16,64) bf16 causal, device ms a call by kernel "
+          f"(torch.profiler): {split or 'not measured'} [{card}]")
+    hgmma, regs = sass_hgmma(), ptxas_report()
+    print(f"sass HGMMA instructions per tensor-core kernel: {hgmma} [{card}]")
+    for name, rep in regs.items():
+        print(f"ptxas {name}: {rep}")
+    check(len(hgmma) == 6 and all(n > 0 for n in hgmma.values()), f"HGMMA counts {hgmma}")
+    check(len(regs) == 6 and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs.values()),
+          f"ptxas report {regs}")
 
     # kernel D: both outputs exact, at a small shape and the tool's
     err["pump"] = 0
@@ -301,9 +476,8 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
           f"{bounds['pump'][0]:.4f} ms by {bounds['pump'][1]} [{card}]")
     del w, w32, dst
     torch.cuda.synchronize()
-    return {"err": err, "lib": lib, "bound": bounds,
-            "ms": {"flash": t_att, "mel": t_mel, "flash_plm": t_fwd, "flash_bwd": t_bwd,
-                   "pump": t_pump}}
+    return {"err": err, "lib": lib, "bound": bounds, "simt": simt, "tflops": tflops,
+            "ms": {"flash": t_att, "mel": t_mel, "pump": t_pump, **times}}
 
 
 def _configs(full: bool):
@@ -460,13 +634,17 @@ def _drive_slice(tts, label: str, card: str, root: str, wavs: str, sig: torch.Te
     torch.cuda.synchronize()
     mel.mel_spectrogram_cuda.launches = 0
     att.flash_attention_cuda.launches = 0
+    att.flash_attention_cuda.tc_launches = 0
     full = tts(wavs, "hello world", out_path=os.path.join(root, "test.wav"),
                prompt_features=features)
     outs, mels = batch()
     torch.cuda.synchronize()
-    launches = {"mel": mel.mel_spectrogram_cuda.launches, "flash": att.flash_attention_cuda.launches}
-    print(f"slice {label}: launches on this path {launches}")
+    launches = {"mel": mel.mel_spectrogram_cuda.launches, "flash": att.flash_attention_cuda.launches,
+                "flash_tc": att.flash_attention_cuda.tc_launches}
+    print(f"slice {label}: launches on this path {launches} (flash_tc: kernel B on the tensor cores, "
+          f"the prompt prefill)")
     check(launches["mel"] > 0 and launches["flash"] > 0, f"{label}: a kernel was not launched: {launches}")
+    check(features is None or launches["flash_tc"] > 0, f"{label}: the prefill missed the tensor cores")
 
     prompt = _read_prompt(os.path.join(wavs, "a.wav"))
     gen_len = len(full) - len(prompt)
@@ -607,6 +785,34 @@ def phase_train_reference(dev: torch.device) -> None:
           f"launches fwd {launched[0]} bwd {launched[1]}")
 
 
+def step_breakdown(fn, n: int = 2) -> tuple[dict, list]:
+    """Device ms per call of ``fn`` by kernel group (kernels B and C,
+    matrix products, the rest), and the five costliest kernels, from a
+    ``torch.profiler`` trace of n warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    groups = {"attention B, C": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3 / n  # a kernel's own span on the device
+        name = ev.name
+        key = ("attention B, C" if "flash_" in name else
+               "matmul" if re.search(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", name) else "other")
+        groups[key] += ms
+        by_name[name[:48]] = by_name.get(name[:48], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return groups, [(k, round(v, 3)) for k, v in top]
+
+
 def _steps_ms(step, state, batch, n: int = 5) -> float:
     """Warm milliseconds per train step, host clock around n steps that end
     in a synchronize (the numpy batch is uploaded in every step)."""
@@ -637,17 +843,20 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
     eval_before = float(evaluate(st, batch)["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    att.flash_attention_cuda.launches = 0
-    att.flash_attention_bwd_cuda.launches = 0
+    for fn in (att.flash_attention_cuda, att.flash_attention_bwd_cuda):
+        fn.launches = fn.tc_launches = fn.layout_copies = 0
     log_dir = os.path.join(root, "logs")
     run_training("plm", st, step, lambda epoch: [batch], max_steps=6, log_dir=log_dir,
                  log_every=1, val_every=6, eval_step=evaluate,
                  valid_loader_factory=lambda epoch: [batch])
     torch.cuda.synchronize()
     launches = {"flash": att.flash_attention_cuda.launches,
-                "flash_bwd": att.flash_attention_bwd_cuda.launches}
-    print(f"train: launches on the main path {launches}")
-    check(launches["flash"] > 0 and launches["flash_bwd"] > 0, f"a kernel was not launched: {launches}")
+                "flash_bwd": att.flash_attention_bwd_cuda.launches,
+                "flash_tc": att.flash_attention_cuda.tc_launches,
+                "flash_bwd_tc": att.flash_attention_bwd_cuda.tc_launches}
+    print(f"train: launches on the main path {launches}; views copied for TMA: fwd "
+          f"{att.flash_attention_cuda.layout_copies}, bwd {att.flash_attention_bwd_cuda.layout_copies}")
+    check(all(n > 0 for n in launches.values()), f"a kernel or its tensor-core path was not launched: {launches}")
     with open(os.path.join(log_dir, "plm_metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     losses = [r["train/loss"] for r in rows if "train/loss" in r]
@@ -662,6 +871,11 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
     print(f"train: PLM warm step {ms:.2f} ms, {tokens / ms * 1e3:.0f} tokens/s "
           f"(B={PLM_B}, L={PLM_L}, padded; {sum(PLM_LENS) / ms * 1e3:.0f} valid tokens/s), "
           f"peak device memory {peak:.2f} GiB [{card}]")
+    groups, top = step_breakdown(lambda: step(st, batch))
+    busy = sum(groups.values())
+    print(f"train: trace of a warm step (torch.profiler), device ms by kernel group "
+          f"{ {k: round(v, 3) for k, v in groups.items()} }, busy {busy:.2f} of {ms:.2f} ms "
+          f"({1 - busy / ms:.1%} idle); top kernels {top} [{card}]")
 
     acfg = c.MegaADMConfig(tc_emb_dim=512)
     rng = np.random.RandomState(SEED + 4)
@@ -704,7 +918,7 @@ def main() -> None:
         pump_launches = phase_bandwidth(card)
         phase_train_reference(dev)
         train = phase_train(dev, card, root)
-    synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash")}
+    synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
 
     def row(name, source, replaces, key, err_key, launches, shape, **extra):
         ms, plain_ms = k["ms"][key]
@@ -723,11 +937,16 @@ def main() -> None:
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
             launches_by_path={**{label: s["flash"] for label, s in slices.items()},
                               "train": train["flash"]},
+            tc_launches=synth["flash_tc"] + train["flash_tc"], ms_simt=k["simt"]["flash_plm"],
+            tflops=k["tflops"]["flash_plm"],
             ms_mrte=k["ms"]["flash"][0], plain_ms_mrte=k["ms"]["flash"][1],
-            bound_ms_mrte=k["bound"]["flash_mrte"][0], library_ms_mrte=k["lib"]["flash_mrte"]),
+            bound_ms_mrte=k["bound"]["flash_mrte"][0], library_ms_mrte=k["lib"]["flash_mrte"],
+            ms_prefill_256=k["ms"]["prefill_256"][0], ms_simt_prefill_256=k["simt"]["prefill_256"],
+            library_ms_prefill_256=k["lib"]["prefill_256"]),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",
             "flash_bwd", "flash_bwd", train["flash_bwd"], "(8, 1024, 16, 64) bf16 causal",
-            library="scaled_dot_product_attention backward"),
+            library="scaled_dot_product_attention backward", tc_launches=train["flash_bwd_tc"],
+            ms_simt=k["simt"]["flash_bwd"], tflops=k["tflops"]["flash_bwd"]),
         row("pump", "pump.cu", "tools/bw_ceiling.py:154", "pump", "pump", pump_launches,
             f"{PUMP_SHAPE} int8 x {PUMP_STEPS} passes",
             library=f"{PUMP_STEPS} x torch.sum(W.view(int32), dtype=int64)",

@@ -6,38 +6,67 @@
 // recomputed from the forward's row max m and row sum l,
 //   dv = P^T g,  dp = g V^T,  D = rowsum(dp * P),  ds = P * (dp - D),
 //   dq = ds K * scale,  dk = ds^T Q * scale.
-// Inputs q, k, v, g are fp32 or bf16, read through their (b, t, h) strides
-// with unit stride over Dh.  Every product accumulates in fp32.  As _fa_bwd
-// does, P is rounded to the input dtype before P^T g and ds before the dq and
-// dk products, while D comes from the fp32 P and dp.  dq, dk, dv are written
-// in the input dtype.
+// Inputs q, k, v, g are fp32 or bf16.  Every product accumulates in fp32.
+// As _fa_bwd does, P is rounded to the input dtype before P^T g and ds before
+// the dq and dk products, while D comes from the fp32 P and dp.  dq, dk, dv
+// are written in the input dtype.
 //
-// What bounds it on the card: at the PLM's (8, 1024, 16, 64) bf16 causal
-// shape one layer's backward is ~9 Dh-long dot products per (query, key)
-// pair, ~80 GFLOP of fp32 FMAs, with no tensor cores in this first version:
-// FMA issue and the shared-memory reads feeding it bound it, not bytes.
+// Both implementations below run two passes without atomics, so the result
+// does not depend on run order: pass 1, per query tile, a sweep over the key
+// tiles for D then a sweep for dq; pass 2, per key tile, dk and dv over the
+// query tiles.  That is 9 products a (query, key) pair against the minimum 5.
+// Tiles whose P is exactly 0 are skipped: key tiles past k_len or past the
+// block's last row when causal (pass 1), query rows before the block's first
+// key when causal and whole key blocks past k_len (pass 2).  That is exact
+// only when k_len > 0.  A k_len == 0 row has every logit at -1e9, so P = 1/Tk
+// on every key and ds spreads its gradient over all of them, as _fa_bwd does;
+// those rows visit every tile.  Hence m and l are kept apart: -1e9 + log(Tk)
+// rounds back to -1e9 in fp32, so a log-sum-exp would give P = 1 there
+// instead of 1/Tk.
 //
-// What the design does about it (simple and right first, no atomics, so it
-// is deterministic):
-//  * Pass 1, one block per (b, h, 16 query rows), 4 warps of 4 rows, lane j
-//    owning key j of a 32-key tile (kernel B's layout).  Sweep A over the
-//    key tiles computes D per row; sweep B recomputes P and dp and
-//    accumulates dq in registers (lane l owns dims l, l + 32, ...).  Writes
-//    dq and D.
-//  * Pass 2, one block per (b, h, 16 keys), 4 warps of 4 keys, lane i owning
-//    query row i of a 32-row tile.  It streams q and g tiles, reads m, l and
-//    D per row, and accumulates dk and dv for its keys in registers.
-//  * Tiles whose P is exactly 0 are skipped: key tiles past k_len or past
-//    the block's last row when causal (pass 1), query rows before the block's
-//    first key when causal and whole key blocks past k_len (pass 2).  That is
-//    exact only when k_len > 0.  A k_len == 0 row has every logit at -1e9,
-//    so P = 1/Tk on every key and ds spreads its gradient over all of them,
-//    as _fa_bwd does; those rows visit every tile.  Hence m and l are kept
-//    apart: -1e9 + log(Tk) rounds back to -1e9 in fp32, so a log-sum-exp
-//    would give P = 1 there instead of 1/Tk.
+// 1. bf16 at Dh 64 and 128 — the tensor-core path (flash_bwd_dq_tc_kernel,
+//    flash_bwd_dkdv_tc_kernel), which PLM training takes.  What bounds it:
+//    operations.  At the PLM's (8, 1024, 16, 64) causal shape the nine
+//    products are 18 Dh FLOP a kept pair, ~62 GFLOP, ~0.06 ms at 989 TFLOP/s
+//    against ~0.035 ms for its 118.5 MB.  The design:
+//    * Every product is a wgmma, bf16 x bf16 -> fp32, exactly the roundings
+//      _fa_bwd applies, so the tensor cores reproduce them up to summation
+//      order.  Pass 1: one consumer warpgroup owns 64 query rows; S = Q K^T
+//      and dP = g V^T read Q, g, K, V from shared memory (all K-major); dS
+//      goes to bf16 A fragments in registers and dq += dS K reads K
+//      MN-major.  Pass 2: one warpgroup owns 64 keys and computes the
+//      transposes, S^T = K Q^T and dP^T = V g^T (K-major), then dv += P^T g
+//      and dk += dS^T Q with P^T and dS^T from registers and g, Q MN-major.
+//    * A fifth warp loads: one lane issues TMA loads (128-byte swizzle, zero
+//      fill past the edges) of the block's own tiles once and of the
+//      streamed tiles (K/V in pass 1, Q/g in pass 2) into a 2-stage ring
+//      with full/empty mbarriers.  Pass 1 streams K/V twice, once a sweep.
+//    * P = exp(x - m) / l in fp32, from m and l read per row in pass 1; in
+//      pass 2 the loader warp stages m, 1/l and D of each query tile into
+//      its ring stage.  Tiles inside k_len, Tq and the diagonal skip the
+//      mask arithmetic.
+//    * Pass 2 at Dh 128 streams 32-row query tiles to keep dk, dv and the
+//      two score tiles within the register file.
+//    * Query tiles are launched longest (causal) first in pass 1; pass 2's
+//      low key tiles, the longest, come first already.
+//
+// 2. fp32 (all head dims) and bf16 at Dh 256 — the SIMT path of PR 2
+//    (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel): FMA issue and the shared-
+//    memory reads feeding it bound it.  fp32 keeps full-fp32 products (TF32
+//    wgmma would not).  The design:
+//    * Pass 1, one block per (b, h, 16 query rows), 4 warps of 4 rows, lane j
+//      owning key j of a 32-key tile (kernel B's layout).  Sweep A over the
+//      key tiles computes D per row; sweep B recomputes P and dp and
+//      accumulates dq in registers (lane l owns dims l, l + 32, ...).  Writes
+//      dq and D.
+//    * Pass 2, one block per (b, h, 16 keys), 4 warps of 4 keys, lane i owning
+//      query row i of a 32-row tile.  It streams q and g tiles, reads m, l and
+//      D per row, and accumulates dk and dv for its keys in registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -381,6 +410,435 @@ cudaError_t dispatch_dh(int Dh, const Args& a, cudaStream_t stream) {
   }
 }
 
+
+// ---- the tensor-core path: bf16, Dh 64 and 128 -----------------------------
+namespace tc {
+
+constexpr int BR = 64;        // rows a block owns: query rows (pass 1) or keys (pass 2)
+constexpr int BK = 64;        // keys per streamed tile in pass 1
+constexpr int STAGES = 2;
+constexpr int THREADS = 160;  // warps 0-3 compute, warp 4 loads
+
+template <int DH>
+struct Pass2 {  // query rows per streamed tile in pass 2
+  static constexpr int BQ = DH == 64 ? 64 : 32;
+};
+
+template <int DH>
+struct Layout {  // byte offsets in shared memory, either pass
+  static constexpr int OWN = BR * DH * 2;     // one of the block's two own tiles
+  static constexpr int STREAM = BK * DH * 2;  // one streamed tile, pass 1 (pass 2's are no larger)
+  static constexpr int RING = 2 * OWN;        // stage s: two streamed tiles at RING + 2 s STREAM
+  static constexpr int STATS = RING + 2 * STAGES * STREAM;  // pass 2, stage s: m, 1/l, D of its rows
+  static constexpr int STAT_STAGE = 3 * 64 * 4;
+  static constexpr int BARS = STATS + STAGES * STAT_STAGE;
+  static constexpr int BYTES = BARS + 64 + 1024;
+};
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// P for query row qi and key j from the raw dot product s, as prob() below;
+// without MASKED the caller knows the pair is inside every mask.
+template <bool MASKED>
+__device__ __forceinline__ float prob_tc(float s, int qi, int j, int Tq, int Tk, int klen,
+                                         int causal, float scale, float m, float inv_l) {
+  if (!MASKED) return exp2f((s * scale - m) * LOG2E) * inv_l;
+  if (qi >= Tq || j >= Tk) return 0.f;
+  const bool keep = j < klen && (!causal || j <= qi);
+  const float x = keep ? s * scale : MASK_FILL;
+  return exp2f((x - m) * LOG2E) * inv_l;
+}
+
+// Pass 1: P in place of the 64 x 64 scores (rows row, row + 8 of this thread).
+template <bool MASKED>
+__device__ __forceinline__ void probs_rows(float (&sc)[32], int row, int kt, int c0, int Tq, int Tk,
+                                           int klen, int causal, float scale, const float (&m_r)[2],
+                                           const float (&il_r)[2]) {
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int r = (x >> 1) & 1;
+    sc[x] = prob_tc<MASKED>(sc[x], row + 8 * r, kt + 8 * (x / 4) + c0 + (x & 1), Tq, Tk, klen,
+                            causal, scale, m_r[r], il_r[r]);
+  }
+}
+
+// Pass 2: P^T in place of the 64 x N transposed scores (rows: keys key,
+// key + 8; columns: query rows qt + 8 c + c0 + e) and dS^T = P^T (dP^T - D) in
+// place of dP^T, with m, 1/l, D of the tile's query rows from shared memory.
+template <bool MASKED, int N>
+__device__ __forceinline__ void probs_cols(float (&sc)[N / 2], float (&dp)[N / 2], const float* st,
+                                           int key, int qt, int c0, int Tq, int Tk, int klen,
+                                           int causal, float scale) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int lc = 8 * c + c0 + e;
+      const float m_i = st[lc], il_i = st[64 + lc], d_i = st[128 + lc];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int x = 4 * c + 2 * r + e;
+        const float p = prob_tc<MASKED>(sc[x], qt + lc, key + 8 * r, Tq, Tk, klen, causal, scale,
+                                        m_i, il_i);
+        sc[x] = p;
+        dp[x] = p * (dp[x] - d_i);
+      }
+    }
+}
+
+// Shared set-up of both passes: align the dynamic shared memory to 1024 bytes
+// and initialise the own-tiles barrier and the ring's full/empty barriers.
+template <int DH>
+__device__ __forceinline__ unsigned char* setup(unsigned char* raw, uint64_t*& own, uint64_t*& full,
+                                                uint64_t*& empty, int full_arrivals) {
+  unsigned char* smem = raw + ((1024 - (sm90::smem_addr(raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Layout<DH>::BARS);
+  own = bars;
+  full = bars + 1;
+  empty = bars + 1 + STAGES;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], full_arrivals);
+      sm90::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  return smem;
+}
+
+// The loader warp's loop: the block's two own tiles (row `own_row` of maps
+// a, b), then n streamed pairs (maps c, d, `rows` each, starting at row
+// first + (i % period) * rows).  Lane 0 issues the copies.  With m non-null
+// (pass 2) every lane also writes m, 1/l and D of the streamed rows into the
+// stage and arrives on its full barrier (33 arrivals with lane 0's expect_tx).
+template <int DH>
+__device__ __forceinline__ void load_all(unsigned char* smem, uint64_t* own, uint64_t* full,
+                                         uint64_t* empty, const CUtensorMap* a, const CUtensorMap* b,
+                                         int own_row, const CUtensorMap* c, const CUtensorMap* d,
+                                         int first, int rows, int n, int period, int h, int bb,
+                                         const float* m, const float* l, const float* dsum,
+                                         long long stat0, int Tq) {
+  using L = Layout<DH>;
+  constexpr int NB = DH / 64;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    sm90::mbar_expect_tx(own, 2 * L::OWN);
+    for (int nb = 0; nb < NB; ++nb) {
+      sm90::tma_load_4d(smem + nb * BR * 128, a, nb * 64, h, own_row, bb, own);
+      sm90::tma_load_4d(smem + L::OWN + nb * BR * 128, b, nb * 64, h, own_row, bb, own);
+    }
+  }
+  const int bytes = rows * DH * 2;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    if (i >= STAGES) sm90::mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
+    const int row = first + (i % period) * rows;
+    if (lane == 0) {
+      sm90::mbar_expect_tx(&full[s], 2 * bytes);
+      unsigned char* t = smem + L::RING + 2 * s * L::STREAM;
+      for (int nb = 0; nb < NB; ++nb) {
+        sm90::tma_load_4d(t + nb * rows * 128, c, nb * 64, h, row, bb, &full[s]);
+        sm90::tma_load_4d(t + L::STREAM + nb * rows * 128, d, nb * 64, h, row, bb, &full[s]);
+      }
+    }
+    if (m) {
+      float* st = reinterpret_cast<float*>(smem + L::STATS + s * L::STAT_STAGE);
+      for (int r = lane; r < rows; r += 32) {
+        const int qi = row + r;
+        const bool in = qi < Tq;
+        st[r] = in ? m[stat0 + qi] : 0.f;
+        st[64 + r] = in ? 1.f / l[stat0 + qi] : 0.f;
+        st[128 + r] = in ? dsum[stat0 + qi] : 0.f;
+      }
+      sm90::mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// X (64 x N) = A (64 x DH, own tile at a_addr) B^T (N rows x DH at b_addr, N-row
+// column blocks), both K-major; zeroes X first.
+template <int DH, int N>
+__device__ __forceinline__ void scores(float (&x)[N / 2], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) x[i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    const uint64_t da = sm90::desc_kmajor(a_addr + (ks / 4) * (BR * 128) + (ks % 4) * 32);
+    const uint64_t db = sm90::desc_kmajor(b_addr + (ks / 4) * (N * 128) + (ks % 4) * 32);
+    if constexpr (N == 64) sm90::wgmma_ss_n64<0>(x, da, db, ks > 0);
+    else sm90::wgmma_ss_n32<0>(x, da, db, ks > 0);
+  }
+}
+
+// acc[nb] (64 x 64 dims nb) += A (64 x 16 kk, fragments) B (rows x DH tile
+// at addr, MN-major), over the KK k16 steps of one streamed tile.
+template <int DH, int KK>
+__device__ __forceinline__ void accumulate(float (&acc)[DH / 64][32], const uint32_t (&a)[KK][4],
+                                           uint32_t addr) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < DH / 64; ++nb)
+      sm90::wgmma_rs_n64<1>(acc[nb], a[kk], sm90::desc_mnmajor(addr + nb * (KK * 16) * 128 + kk * 2048));
+}
+
+// Accumulator x (64 x 16 KK) as bf16 A fragments, one per 16 columns.
+template <int KK>
+__device__ __forceinline__ void fragments(uint32_t (&a)[KK][4], const float (&x)[KK * 8]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) a[kk][w] = sm90::pack_bf16(x[8 * kk + 2 * w], x[8 * kk + 2 * w + 1]);
+}
+
+// Writes rows r0 and r0 + 8 of a 64 x DH accumulator times `mul`, rows at
+// or past `limit` skipped.
+template <int DH>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long st, int row0, int limit,
+                                           const float (&acc)[DH / 64][32], float mul, int c0) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    if (t >= limit) continue;
+    __nv_bfloat16* row = base + t * st;
+#pragma unroll
+    for (int nb = 0; nb < DH / 64; ++nb)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) = __floats2bfloat162_rn(
+            acc[nb][4 * c + 2 * r] * mul, acc[nb][4 * c + 2 * r + 1] * mul);
+  }
+}
+
+// This warp is done with ring stage s (its wgmmas have completed).
+__device__ __forceinline__ void consumed(uint64_t* empty, int s) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(&empty[s]);
+}
+
+// ---- pass 1: D and dq, one block per (b, h, 64 query rows) -----------------
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                       const int* __restrict__ k_lens, const float* __restrict__ m,
+                       const float* __restrict__ l, float* __restrict__ dsum,
+                       __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H, Strides sdq,
+                       int causal, float scale) {
+  using L = Layout<DH>;
+  constexpr int NB = DH / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  uint64_t *own, *full, *empty;
+  unsigned char* smem = setup<DH>(smem_raw, own, full, empty, 1);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest causal tiles first
+  const int klen = k_lens ? min(max(k_lens[b], 0), Tk) : Tk;
+  int kend = Tk;  // keys this block visits: P is exactly 0 past them
+  if (klen > 0) {
+    kend = klen;
+    if (causal) kend = min(kend, min(q0 + BR, Tq));
+  }
+  const int ntiles = (kend + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (warp == 4) {  // the loader: Q and g once, K/V twice (one sweep each)
+    if (lane == 0)
+      load_all<DH>(smem, own, full, empty, &mq, &mg, q0, &mk, &mv, 0, BK, 2 * ntiles, ntiles, h, b,
+                   nullptr, nullptr, nullptr, 0, Tq);
+    return;
+  }
+
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
+  float m_r[2], il_r[2], d_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + 8 * r;
+    m_r[r] = qi < Tq ? m[stat0 + qi] : 0.f;
+    il_r[r] = qi < Tq ? 1.f / l[stat0 + qi] : 1.f;
+  }
+  const uint32_t q_addr = sm90::smem_addr(smem), g_addr = q_addr + L::OWN;
+  sm90::mbar_wait(own, 0);
+
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[nb][x] = 0.f;
+
+  for (int i = 0; i < 2 * ntiles; ++i) {
+    const int s = i % STAGES;
+    const bool sweep_b = i >= ntiles;
+    sm90::mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint32_t k_addr = sm90::smem_addr(smem + L::RING + 2 * s * L::STREAM);
+    const uint32_t v_addr = k_addr + L::STREAM;
+    float sc[32], dp[32];
+    sm90::wgmma_fence();
+    scores<DH, BK>(sc, q_addr, k_addr);  // S = Q K^T
+    scores<DH, BK>(dp, g_addr, v_addr);  // dP = g V^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sc);
+    sm90::fence_operands(dp);
+
+    const int kt = (sweep_b ? i - ntiles : i) * BK;
+    // a tile inside k_len, Tq and (when causal) below the diagonal needs no mask
+    if (klen > 0 && kt + BK <= kend && q0 + BR <= Tq && (!causal || kt + BK - 1 <= q0))
+      probs_rows<false>(sc, q0 + r0, kt, c0, Tq, Tk, klen, causal, scale, m_r, il_r);
+    else
+      probs_rows<true>(sc, q0 + r0, kt, c0, Tq, Tk, klen, causal, scale, m_r, il_r);
+    if (!sweep_b) {  // sweep A: D = sum_j dP * P, this thread's part
+#pragma unroll
+      for (int x = 0; x < 32; ++x) d_r[(x >> 1) & 1] = fmaf(dp[x], sc[x], d_r[(x >> 1) & 1]);
+      if (i == ntiles - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          d_r[r] += __shfl_xor_sync(FULL, d_r[r], 1);
+          d_r[r] += __shfl_xor_sync(FULL, d_r[r], 2);
+        }
+      }
+      consumed(empty, s);
+      continue;
+    }
+    // sweep B: dS = P (dP - D), rounded to bf16; dq += dS K
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] *= dp[x] - d_r[(x >> 1) & 1];
+    uint32_t ds[BK / 16][4];
+    fragments<BK / 16>(ds, sc);
+    sm90::wgmma_fence();
+    accumulate<DH, BK / 16>(acc, ds, k_addr);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) sm90::fence_operands(acc[nb]);
+    consumed(empty, s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + 8 * r;
+    if (qi < Tq && lane % 4 == 0) dsum[stat0 + qi] = d_r[r];
+  }
+  store_rows<DH>(dq + b * sdq.b + h * sdq.h, sdq.t, q0 + r0, Tq, acc, scale, c0);
+}
+
+// ---- pass 2: dk and dv, one block per (b, h, 64 keys) ----------------------
+template <int DH>
+__global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                         const int* __restrict__ k_lens, const float* __restrict__ m,
+                         const float* __restrict__ l, const float* __restrict__ dsum,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
+                         int Tk, int H, Strides sdk, Strides sdv, int causal, float scale) {
+  using L = Layout<DH>;
+  constexpr int NB = DH / 64;
+  constexpr int BQ = Pass2<DH>::BQ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  uint64_t *own, *full, *empty;
+  unsigned char* smem = setup<DH>(smem_raw, own, full, empty, 33);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * BR;
+  const int klen = k_lens ? min(max(k_lens[b], 0), Tk) : Tk;
+  int qstart = 0, qend = Tq;  // query rows this block visits: P is exactly 0 elsewhere
+  if (klen > 0) {
+    if (k0 >= klen) qend = 0;          // every key of the block is masked
+    if (causal) qstart = min(k0, Tq);  // rows before the block's first key
+  }
+  const int ntiles = qend > qstart ? (qend - qstart + BQ - 1) / BQ : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
+
+  if (warp == 4) {  // the loader: K and V once, then Q/g tiles with their m, 1/l, D
+    if (ntiles > 0)
+      load_all<DH>(smem, own, full, empty, &mk, &mv, k0, &mq, &mg, qstart, BQ, ntiles, ntiles, h, b,
+                   m, l, dsum, stat0, Tq);
+    return;
+  }
+
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const uint32_t k_addr = sm90::smem_addr(smem), v_addr = k_addr + L::OWN;
+  float dk_acc[NB][32], dv_acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dk_acc[nb][x] = dv_acc[nb][x] = 0.f;
+  if (ntiles > 0) sm90::mbar_wait(own, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    const int qt = qstart + i * BQ;
+    sm90::mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint32_t q_addr = sm90::smem_addr(smem + L::RING + 2 * s * L::STREAM);
+    const uint32_t g_addr = q_addr + L::STREAM;
+    float sc[BQ / 2], dp[BQ / 2];
+    sm90::wgmma_fence();
+    scores<DH, BQ>(sc, k_addr, q_addr);  // S^T = K Q^T
+    scores<DH, BQ>(dp, v_addr, g_addr);  // dP^T = V g^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sc);
+    sm90::fence_operands(dp);
+
+    // rows are keys, columns query rows: P^T and dS^T; a tile inside k_len,
+    // Tq and (when causal) below the diagonal needs no mask
+    const float* st = reinterpret_cast<const float*>(smem + L::STATS + s * L::STAT_STAGE);
+    if (klen > 0 && k0 + BR <= klen && qt + BQ <= Tq && (!causal || k0 + BR - 1 <= qt))
+      probs_cols<false, BQ>(sc, dp, st, k0 + r0, qt, c0, Tq, Tk, klen, causal, scale);
+    else
+      probs_cols<true, BQ>(sc, dp, st, k0 + r0, qt, c0, Tq, Tk, klen, causal, scale);
+    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+    fragments<BQ / 16>(pf, sc);
+    fragments<BQ / 16>(dsf, dp);
+    sm90::wgmma_fence();
+    accumulate<DH, BQ / 16>(dv_acc, pf, g_addr);   // dv += P^T g
+    accumulate<DH, BQ / 16>(dk_acc, dsf, q_addr);  // dk += dS^T Q
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      sm90::fence_operands(dv_acc[nb]);
+      sm90::fence_operands(dk_acc[nb]);
+    }
+    consumed(empty, s);
+  }
+
+  store_rows<DH>(dk + b * sdk.b + h * sdk.h, sdk.t, k0 + r0, Tk, dk_acc, scale, c0);
+  store_rows<DH>(dv + b * sdv.b + h * sdv.h, sdv.t, k0 + r0, Tk, dv_acc, 1.f, c0);
+}
+
+template <int DH>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg, mq2, mg2;
+  constexpr int BQ = Pass2<DH>::BQ;
+  cudaError_t e = sm90::make_tile_map(&mq, a.q, a.B, a.Tq, a.H, DH, a.sq.b, a.sq.t, a.sq.h, BR);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mg, a.g, a.B, a.Tq, a.H, DH, a.sg.b, a.sg.t, a.sg.h, BR);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mk, a.k, a.B, a.Tk, a.H, DH, a.sk.b, a.sk.t, a.sk.h, BK);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mv, a.v, a.B, a.Tk, a.H, DH, a.sv.b, a.sv.t, a.sv.h, BK);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mq2, a.q, a.B, a.Tq, a.H, DH, a.sq.b, a.sq.t, a.sq.h, BQ);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mg2, a.g, a.B, a.Tq, a.H, DH, a.sg.b, a.sg.t, a.sg.h, BQ);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = Layout<DH>::BYTES;
+  e = sm90::allow_smem<flash_bwd_dq_tc_kernel<DH>>(smem);
+  if (e == cudaSuccess) e = sm90::allow_smem<flash_bwd_dkdv_tc_kernel<DH>>(smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_tc_kernel<DH><<<dim3(a.B * a.H, (a.Tq + BR - 1) / BR), THREADS, smem, stream>>>(
+      mq, mk, mv, mg, a.k_lens, a.m, a.l, a.dsum, static_cast<__nv_bfloat16*>(a.dq), a.Tq, a.Tk,
+      a.H, a.sdq, a.causal, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // pass 2's K/V maps: the block's own 64-key tiles (BR rows, as BK)
+  flash_bwd_dkdv_tc_kernel<DH><<<dim3(a.B * a.H, (a.Tk + BR - 1) / BR), THREADS, smem, stream>>>(
+      mq2, mk, mv, mg2, a.k_lens, a.m, a.l, a.dsum, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.Tq, a.Tk, a.H, a.sdk, a.sdv, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 
 // q, g (B, Tq, H, Dh) and k, v (B, Tk, H, Dh) as the forward took them; dq,
@@ -388,7 +846,10 @@ cudaError_t dispatch_dh(int Dh, const Args& a, cudaStream_t stream) {
 // Dh.  m, l (the forward's row max and row sum) and dsum (scratch, written
 // here) are contiguous (B, H, Tq) fp32.  k_lens is (B,) int32 or null (all
 // keys valid).  is_bf16 selects __nv_bfloat16 over float for the seven
-// tensors.  Launches pass 1 then pass 2 on `stream`.
+// tensors: 1 takes the tensor-core path at Dh 64 and 128 (bf16 tensors with
+// 16-byte aligned bases and strides, dq/dk/dv contiguous) and the SIMT path at
+// Dh 256; 2 takes the SIMT path at every head dim, to compare the two.
+// Launches pass 1 then pass 2 on `stream`.
 extern "C" int mt_flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                                  const int* k_lens, const float* m, const float* l,
                                  float* dsum, void* dq, void* dk, void* dv, int B, int Tq,
@@ -401,6 +862,12 @@ extern "C" int mt_flash_attn_bwd(const void* q, const void* k, const void* v, co
                {s[9], s[10], s[11]}, {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
                {s[18], s[19], s[20]}, causal, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = is_bf16 ? dispatch_dh<__nv_bfloat16>(Dh, a, st) : dispatch_dh<float>(Dh, a, st);
+  cudaError_t e;
+  if (is_bf16 == 1 && Dh == 64)
+    e = tc::launch<64>(a, st);
+  else if (is_bf16 == 1 && Dh == 128)
+    e = tc::launch<128>(a, st);
+  else
+    e = is_bf16 ? dispatch_dh<__nv_bfloat16>(Dh, a, st) : dispatch_dh<float>(Dh, a, st);
   return static_cast<int>(e);
 }

@@ -5,37 +5,68 @@
 // softmax(Q K^T * Dh^-0.5) V on (B, T, H, Dh) tensors, where logits at
 // masked positions are REPLACED by the finite -1e9 (not -inf).  The mask is
 // built in the kernel from a per-batch key length k_lens[b] and an optional
-// causal flag.  Inputs are fp32 or bf16; both products accumulate in fp32,
-// P stays fp32 for P V, and the output is written in the input dtype.
+// causal flag.  Both products accumulate in fp32 and the output is written
+// in the input dtype.  For the backward (kernel C) the kernel can also write
+// each row's final max m and sum l, fp32 (B, H, Tq); with null pointers it
+// writes neither.
 //
-// What bounds it on the card: at the slice's shape (8, 64, 2, 256) the whole
-// problem is ~34 MFLOP over 16 (batch, head) pairs, so launch latency and
-// the dependent chain of shared-memory reads bound it, not FLOPs or bytes.
-// At long sequences it becomes FMA-issue bound, since this first version
-// uses no tensor cores.
+// Two implementations, chosen by dtype and head dim (dispatch, not fallback):
 //
-// What the design does about it (simple and right first):
-//  * The TPU kernel holds the whole K/V panel in VMEM per 128-row q block.
-//    That does not fit Hopper's 227 KB of shared memory in general, so K/V
-//    stream through shared memory in 32-key tiles, converted to fp32, with
-//    a running max and sum per row in fp32 (online softmax).
-//  * A block takes BQ = 16 query rows of one (b, h): 4 warps of 4 rows.
-//    For Q K^T lane j owns key j of the tile and runs the whole Dh dot,
-//    reading K rows padded by one float, so the 32 lanes hit 32 banks.  For
-//    P V lane l owns output dims l, l + 32, ...: P broadcasts by shuffle and
-//    V rows are read unpadded, consecutive lanes on consecutive words.
-//  * Tensors are read in place through their (b, t, h) strides; nothing is
-//    transposed.  Ragged Tq and Tk edges are masked in the kernel.
-//  * Tiles past k_len (and past the block's last row when causal) are
-//    skipped.  That is exact only when the row keeps at least one key:
-//    exp(-1e9 - m) then underflows to exactly 0.  A row has no key only
-//    when k_len == 0; then all Tk keys take part and the row gives the mean
-//    of V, as the TPU kernel does, never NaN.
-//  * For the backward (kernel C) the kernel can also write each row's final
-//    max m and sum l, fp32 (B, H, Tq); with null pointers it writes neither.
+// 1. bf16 at Dh 64 and 128 — the tensor-core path (flash_fwd_tc_kernel),
+//    which the PLM's training and its prompt prefill take.  What bounds it:
+//    operations.  At the PLM's (8, 1024, 16, 64) causal shape it does
+//    4 Dh FLOP per kept (query, key) pair, ~25 GFLOP, ~0.025 ms at 989
+//    TFLOP/s against ~0.02 ms for its 68 MB.  The design:
+//    * One consumer warpgroup owns 64 query rows; S = Q K^T and O += P V run
+//      as wgmma (m64n64k16, bf16 in, fp32 accumulators in registers).  Q and
+//      K come from shared memory (K stored (key, d) is K-major for operand
+//      B); P goes from the S accumulators to bf16 A fragments in registers;
+//      V is read MN-major (transposed by the descriptor, not by a copy).
+//    * A fifth warp loads: one lane issues TMA tile loads (128-byte
+//      swizzle, zero fill past Tq / Tk) of Q once and of K/V in 64-key
+//      tiles into a 2-stage ring, with full/empty mbarriers per stage.
+//    * The online softmax runs on the accumulators: each row lives in four
+//      lanes, so its max and sum take two shuffles.  The running sum l is
+//      kept from the fp32 P, so kernel C recomputes the same P / l.  P V
+//      takes P as bf16 A fragments (the JAX kernel and the SIMT path keep P
+//      in fp32 there); P is split into bf16 hi + lo parts and P V runs
+//      twice, so P keeps ~16 bits: with one bf16 P the output's error
+//      against the plain fp32 version was 4x the SIMT path's at a checked
+//      shape on an H100 (0.0156 against 0.0039 at (4, 1000, 2, 64) causal,
+//      chip_smoke.py).  Tiles inside k_len, Tq and the diagonal skip the
+//      mask arithmetic.
+//    * Tiles whose P is exactly 0 are skipped as in (2); the ragged Tq / Tk
+//      edges and the causal diagonal are masked inside the tile.  q tiles
+//      are launched longest (causal) first.
+//    * TMA needs a 16-byte-aligned base and 16-byte strides;
+//      ops/attention.py copies a view that breaks this before the launch.
+//
+// 2. fp32 (all head dims) and bf16 at Dh 256 — the SIMT path of PR 1/2
+//    (flash_fwd_kernel).  fp32 keeps full-fp32 products (TF32 wgmma would
+//    not); Dh 256 is the MRTE's short, launch-bound case.  What bounds it:
+//    at the MRTE's (8, 64, 2, 256) ~34 MFLOP over 16 (batch, head) pairs,
+//    launch latency and the dependent chain of shared-memory reads; at long
+//    sequences FMA issue.  The design:
+//    * K/V stream through shared memory in 32-key tiles, converted to
+//      fp32, with a running max and sum per row in fp32, P kept in fp32.
+//    * A block takes BQ = 16 query rows of one (b, h): 4 warps of 4 rows.
+//      For Q K^T lane j owns key j of the tile and runs the whole Dh dot,
+//      reading K rows padded by one float, so the 32 lanes hit 32 banks.  For
+//      P V lane l owns output dims l, l + 32, ...: P broadcasts by shuffle and
+//      V rows are read unpadded, consecutive lanes on consecutive words.
+//    * Tensors are read in place through their (b, t, h) strides; nothing is
+//      transposed.  Ragged Tq and Tk edges are masked in the kernel.
+//
+// Both skip key tiles past k_len (and past the block's last row when
+// causal).  That is exact only when the row keeps at least one key:
+// exp(-1e9 - m) then underflows to exactly 0.  A row has no key only when
+// k_len == 0; then all Tk keys take part and the row gives the mean of V, as
+// the TPU kernel does, never NaN.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -237,12 +268,246 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---- the tensor-core path: bf16, Dh 64 and 128 -----------------------------
+namespace tc {
+
+constexpr int BM = 64;        // query rows of a block: one consumer warpgroup
+constexpr int BN = 64;        // keys per tile
+constexpr int STAGES = 2;     // K/V ring
+constexpr int THREADS = 160;  // warps 0-3 compute, warp 4 loads
+
+template <int DH>
+struct Layout {                                // byte offsets in shared memory
+  static constexpr int TILE = BN * DH * 2;     // one 64-row bf16 tile (BM == BN)
+  static constexpr int Q = 0;
+  static constexpr int RING = TILE;            // stage s: K at RING + 2 s TILE, V after it
+  static constexpr int BARS = RING + 2 * STAGES * TILE;
+  static constexpr int BYTES = BARS + 64 + 1024;  // barriers; slack to align to 1024
+};
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The online softmax on one 64 x 64 score tile in S accumulator layout (this
+// thread: rows row and row + 8, columns 8 c + c0 and 8 c + c0 + 1): masks
+// (MASKED), takes the new row max, rescales this thread's part of the row sum
+// by alpha and adds the tile's fp32 P = exp(x - m), left in sc.
+template <bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m_r)[2], float (&l_r)[2],
+                                             float (&alpha)[2], int kt, int row, int c0, int klen,
+                                             int kend, int causal, float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int r = (x >> 1) & 1;
+    float v = sc[x] * scale;
+    if (MASKED) {
+      const int j = kt + 8 * (x / 4) + c0 + (x & 1);
+      const bool keep = j < klen && (!causal || j <= row + 8 * r);
+      v = keep ? v : MASK_FILL;
+      if (j >= kend) v = -INFINITY;  // outside the visited keys: no weight
+    }
+    sc[x] = v;
+    mx[r] = fmaxf(mx[r], v);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    const float m_new = fmaxf(m_r[r], mx[r]);  // key kt is visited: finite
+    alpha[r] = exp2f((m_r[r] - m_new) * LOG2E);
+    m_r[r] = m_new;
+    l_r[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int r = (x >> 1) & 1;
+    sc[x] = exp2f((sc[x] - m_r[r]) * LOG2E);
+    l_r[r] += sc[x];  // the unrounded P
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, const int* __restrict__ k_lens,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int Tq, int Tk, int H, Strides so, int causal,
+                    float scale) {
+  using L = Layout<DH>;
+  constexpr int NB = DH / 64;  // 128-byte column blocks of a tile
+  constexpr int KS = DH / 16;  // k16 steps of Q K^T
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal tiles first
+  const int klen = k_lens ? min(max(k_lens[b], 0), Tk) : Tk;
+  int kend = Tk;  // keys this block visits
+  if (klen > 0) {
+    kend = klen;
+    if (causal) kend = min(kend, min(q0 + BM, Tq));
+  }
+  const int ntiles = (kend + BN - 1) / BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the loader
+    if (lane == 0) {
+      sm90::mbar_expect_tx(q_full, L::TILE);
+      for (int nb = 0; nb < NB; ++nb)
+        sm90::tma_load_4d(smem + L::Q + nb * BM * 128, &mq, nb * 64, h, q0, b, q_full);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) sm90::mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
+        sm90::mbar_expect_tx(&full[s], 2 * L::TILE);
+        unsigned char* kt = smem + L::RING + 2 * s * L::TILE;
+        for (int nb = 0; nb < NB; ++nb) {
+          sm90::tma_load_4d(kt + nb * BN * 128, &mk, nb * 64, h, i * BN, b, &full[s]);
+          sm90::tma_load_4d(kt + L::TILE + nb * BN * 128, &mv, nb * 64, h, i * BN, b, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread (warp, lane) holds tile rows r0 and r0 + 8,
+  // columns 8 c + c0 and 8 c + c0 + 1 of each 8-column chunk c
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const uint32_t q_addr = sm90::smem_addr(smem + L::Q);
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[nb][x] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};  // l_r: this thread's part
+  sm90::mbar_wait(q_full, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    sm90::mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint32_t k_addr = sm90::smem_addr(smem + L::RING + 2 * s * L::TILE);
+    const uint32_t v_addr = k_addr + L::TILE;
+
+    float sc[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = 0.f;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks / 4) * (BN * 128) + (ks % 4) * 32;
+      sm90::wgmma_ss_n64<0>(sc, sm90::desc_kmajor(q_addr + off), sm90::desc_kmajor(k_addr + off),
+                            ks > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sc);
+
+    const int kt = i * BN;
+    float alpha[2];
+    // a tile inside k_len, Tq and (when causal) below the diagonal needs no mask
+    if (klen > 0 && kt + BN <= kend && q0 + BM <= Tq && (!causal || kt + BN - 1 <= q0))
+      softmax_tile<false>(sc, m_r, l_r, alpha, kt, q0 + r0, c0, klen, kend, causal, scale);
+    else
+      softmax_tile<true>(sc, m_r, l_r, alpha, kt, q0 + r0, c0, klen, kend, causal, scale);
+    // P as bf16 A fragments, one per 16 keys, split hi + lo: P V = P_hi V + P_lo V
+    // carries P to ~16 bits, where one bf16 P would carry 8
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float a = sc[8 * kk + 2 * w], c = sc[8 * kk + 2 * w + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, c);
+        hi[kk][w] = *reinterpret_cast<const uint32_t*>(&h2);
+        lo[kk][w] = sm90::pack_bf16(a - __low2float(h2), c - __high2float(h2));
+      }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[nb][x] *= alpha[(x >> 1) & 1];
+
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const uint64_t dv = sm90::desc_mnmajor(v_addr + nb * BN * 128 + kk * 2048);
+        sm90::wgmma_rs_n64<1>(acc[nb], hi[kk], dv);
+        sm90::wgmma_rs_n64<1>(acc[nb], lo[kk], dv);
+      }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) sm90::fence_operands(acc[nb]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // stage s may be refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
+    const int qi = q0 + r0 + 8 * r;
+    if (qi >= Tq) continue;
+    if (m_out && lane % 4 == 0) {
+      const long long idx = (static_cast<long long>(b) * H + h) * Tq + qi;
+      m_out[idx] = m_r[r];
+      l_out[idx] = l_r[r];
+    }
+    const float inv = 1.f / l_r[r];
+    __nv_bfloat16* row = o + b * so.b + qi * so.t + h * so.h;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) =
+            __floats2bfloat162_rn(acc[nb][4 * c + 2 * r] * inv, acc[nb][4 * c + 2 * r + 1] * inv);
+  }
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* k_lens, void* o,
+                   float* m_out, float* l_out, int B, int Tq, int Tk, int H, Strides sq,
+                   Strides sk, Strides sv, Strides so, int causal, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t e = sm90::make_tile_map(&mq, q, B, Tq, H, DH, sq.b, sq.t, sq.h, BM);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mk, k, B, Tk, H, DH, sk.b, sk.t, sk.h, BN);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&mv, v, B, Tk, H, DH, sv.b, sv.t, sv.h, BN);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = Layout<DH>::BYTES;
+  e = sm90::allow_smem<flash_fwd_tc_kernel<DH>>(smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (Tq + BM - 1) / BM);
+  flash_fwd_tc_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, k_lens, static_cast<__nv_bfloat16*>(o), m_out, l_out, Tq, Tk, H, so, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 
 // q (B, Tq, H, Dh), k and v (B, Tk, H, Dh), o (B, Tq, H, Dh): element strides
 // over (b, t, h), unit stride over Dh.  k_lens is (B,) int32 or null (all
-// keys valid).  is_bf16 selects __nv_bfloat16 over float for all four.
-// m_out and l_out are (B, H, Tq) fp32 for the row max and sum, or both null.
+// keys valid).  is_bf16 selects __nv_bfloat16 over float for all four: 1
+// takes the tensor-core path at Dh 64 and 128 (bf16 tensors with 16-byte
+// aligned bases and strides) and the SIMT path at Dh 256; 2 takes the SIMT
+// path at every head dim, to compare the two.  m_out and l_out are (B, H,
+// Tq) fp32 for the row max and sum, or both null.
 extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                  const int* k_lens, void* o, float* m_out, float* l_out,
                                  int B, int Tq, int Tk, int H, int Dh, long long sq_b, long long sq_t,
@@ -254,10 +519,18 @@ extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
   const Strides sq{sq_b, sq_t, sq_h}, sk{sk_b, sk_t, sk_h};
   const Strides sv{sv_b, sv_t, sv_h}, so{so_b, so_t, so_h};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      is_bf16 ? dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq,
-                                           Tk, H, sq, sk, sv, so, causal, scale, st)
-              : dispatch_dh<float>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq,
-                                   sk, sv, so, causal, scale, st);
+  cudaError_t e;
+  if (is_bf16 == 1 && Dh == 64)
+    e = tc::launch<64>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,
+                       scale, st);
+  else if (is_bf16 == 1 && Dh == 128)
+    e = tc::launch<128>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,
+                        scale, st);
+  else if (is_bf16)
+    e = dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk,
+                                   sv, so, causal, scale, st);
+  else
+    e = dispatch_dh<float>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
+                           causal, scale, st);
   return static_cast<int>(e);
 }

@@ -38,7 +38,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using sm90::bulk_copy_g2s;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
 
 constexpr int THREADS = 256;    // 8 warps; the head region is 8 rows of 32 words
 constexpr int STAGES = 4;
@@ -46,47 +53,6 @@ constexpr int HEAD_ROWS = 8;
 constexpr int HEAD_COLS = 128;  // bytes: 32 words of 4
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(THREADS == HEAD_ROWS * HEAD_COLS / 4, "one head word per thread");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// One arrival that also tells the barrier how many bytes the copy will land.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
-                                              uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ long long warp_sum(long long x) {
 #pragma unroll
@@ -110,7 +76,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
@@ -148,7 +114,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();  // every thread is done reading stage s
     if (tid == 0 && k + STAGES < n_mine) {
       // order those generic-proxy reads before the async-proxy refill
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      sm90::fence_proxy_async();
       fill(k + STAGES);
     }
   }

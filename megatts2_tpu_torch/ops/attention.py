@@ -15,6 +15,12 @@ the output is in q's dtype.
   with its roundings of P and ds to q's dtype.
 * :func:`flash_attention_cuda` / :func:`flash_attention_bwd_cuda` — kernel
   B (``csrc/flash_attn_fwd.cu``) and kernel C (``csrc/flash_attn_bwd.cu``).
+  bf16 at head dims 64 and 128 takes their tensor-core path (``wgmma`` and
+  TMA loads, :func:`uses_tensor_cores`); fp32 and head dim 256 their SIMT
+  path.  The tensor-core path's forward rounds P to bf16 for P V (the row
+  sum stays fp32).  TMA reads a tensor only from a 16-byte-aligned base with
+  16-byte strides (:func:`tma_aligned`); a view that breaks this is copied
+  first, counted in each wrapper's ``layout_copies``.
 * :class:`FlashAttentionFunction` — the ``custom_vjp``: forward by kernel B
   (plain on the CPU) saving q, k, v, k_lens, m and l; backward by kernel C
   (plain on the CPU).
@@ -31,6 +37,31 @@ import torch
 from .masks import NEG_INF
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
+TC_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core path
+
+
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether kernels B and C take their tensor-core path (``wgmma``, TMA)
+    for this dtype and head dim; otherwise their SIMT path runs."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+
+
+def tma_aligned(data_ptr: int, element_size: int, shape, strides) -> bool:
+    """The rule a TMA tensor map sets: unit stride over the last dim, a
+    16-byte-aligned base, and every other stride a multiple of 16 bytes
+    (strides of extent-1 dims are never used and do not count)."""
+    if strides[-1] != 1 or data_ptr % 16:
+        return False
+    return all(n == 1 or (st * element_size) % 16 == 0 for n, st in zip(shape[:-1], strides[:-1]))
+
+
+def _tma_ready(t: torch.Tensor, wrapper) -> torch.Tensor:
+    """t itself if TMA can read it, else a fresh aligned copy, counted on the
+    wrapper (a layout adaptation: the kernel still runs)."""
+    if tma_aligned(t.data_ptr(), t.element_size(), t.shape, t.stride()):
+        return t
+    wrapper.layout_copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -128,6 +159,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _dtype_code(q: torch.Tensor, simt: bool) -> int:
+    """The C entry points' ``is_bf16``: 0 fp32, 1 bf16, 2 bf16 on the SIMT path."""
+    if q.dtype != torch.bfloat16:
+        return 0
+    return 2 if simt else 1
+
+
 def flash_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -135,14 +173,20 @@ def flash_attention_cuda(
     k_lens: Optional[torch.Tensor] = None,
     causal: bool = False,
     return_stats: bool = False,
+    *,
+    simt: bool = False,
 ):
     """Kernel B (``csrc/flash_attn_fwd.cu``).  Reads q, k, v in place through
     their strides; each needs unit stride over Dh.  With ``return_stats``
-    also returns the row max and row sum, fp32 (B, H, Tq)."""
+    also returns the row max and row sum, fp32 (B, H, Tq).  ``simt`` runs
+    the SIMT path whatever the dtype and head dim, to compare the two."""
     _check_qkv(q, k, v, k_lens, "flash_attention_cuda")
     from ..csrc.build import check, load_library
 
     B, Tq, H, Dh = q.shape
+    tc = uses_tensor_cores(q.dtype, Dh) and not simt
+    if tc:
+        q, k, v = (_tma_ready(t, flash_attention_cuda) for t in (q, k, v))
     lib = load_library()
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     m = l = None
@@ -154,14 +198,17 @@ def flash_attention_cuda(
         err = lib.mt_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_lens), out.data_ptr(),
             _ptr(m), _ptr(l), B, Tq, k.shape[1], H, Dh, *strides, int(causal), Dh**-0.5,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            _dtype_code(q, simt), torch.cuda.current_stream().cuda_stream,
         )
     check(err, "flash attention kernel")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.tc_launches += tc
     return (out, m, l) if return_stats else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tc_launches = 0  # launches of the tensor-core path
+flash_attention_cuda.layout_copies = 0
 
 
 def flash_attention_bwd_cuda(
@@ -173,10 +220,13 @@ def flash_attention_bwd_cuda(
     g: torch.Tensor,
     m: torch.Tensor,
     l: torch.Tensor,
+    *,
+    simt: bool = False,
 ):
     """Kernel C (``csrc/flash_attn_bwd.cu``): (dq, dk, dv) in q's dtype.
     q, k, v and g are read in place through their strides (unit stride over
-    Dh; g is made contiguous otherwise); m and l are kernel B's statistics."""
+    Dh; g is made contiguous otherwise); m and l are kernel B's statistics.
+    ``simt`` runs the SIMT path whatever the dtype and head dim."""
     _check_qkv(q, k, v, k_lens, "flash_attention_bwd_cuda")
     B, Tq, H, Dh = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
@@ -187,6 +237,9 @@ def flash_attention_bwd_cuda(
             raise ValueError(f"{name} must be a contiguous (B, H, Tq) float32 tensor on q's device")
     if g.stride(-1) != 1:
         g = g.contiguous()
+    tc = uses_tensor_cores(q.dtype, Dh) and not simt
+    if tc:
+        q, k, v, g = (_tma_ready(t, flash_attention_bwd_cuda) for t in (q, k, v, g))
     from ..csrc.build import check, load_library
 
     lib = load_library()
@@ -202,14 +255,17 @@ def flash_attention_bwd_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(k_lens),
             m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, Tq, k.shape[1], H, Dh, strides, int(causal), Dh**-0.5,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+            _dtype_code(q, simt), torch.cuda.current_stream().cuda_stream,
         )
     check(err, "flash attention backward kernel")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.tc_launches += tc
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.tc_launches = 0  # launches of the tensor-core path
+flash_attention_bwd_cuda.layout_copies = 0
 
 
 def _by_device(t: torch.Tensor, cuda_fn, plain_fn):

@@ -37,27 +37,95 @@ def cuda():
 
 
 def _lens(B, Tk):
-    lens = [Tk, 0, max(1, Tk // 3)] * B
+    lens = [Tk, 0, max(1, Tk // 3), 1] * B
     return torch.tensor(lens[:B], dtype=torch.int32)
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 2, 256), (2, 1000, 16, 64), (3, 77, 4, 128)])
+# (B, Tq, H, Dh[, Tk]): the tensor-core path's edges at Dh 64 (Tq of 1, 32,
+# 300 and 1000 inside 64-row tiles; one query row against 70 keys), Dh 128,
+# and the SIMT path's Dh 256
+FLASH_SHAPES = [(8, 64, 2, 256), (4, 1, 2, 64, 70), (4, 32, 2, 64), (4, 300, 2, 64),
+                (2, 1000, 16, 64), (3, 77, 4, 128)]
+
+
+def _qkv(shape, n, g, dev, dtype):
+    """n tensors: q (B, Tq, H, Dh), then k and v (B, Tk, H, Dh), then the rest
+    shaped as q; shape is (B, Tq, H, Dh) or (B, Tq, H, Dh, Tk)."""
+    B, Tq, H, Dh, *rest = shape
+    Tk = rest[0] if rest else Tq
+    shapes = [(B, Tq, H, Dh), (B, Tk, H, Dh), (B, Tk, H, Dh)] + [(B, Tq, H, Dh)] * (n - 3)
+    return [torch.randn(sh, generator=g).to(dev, dtype) for sh in shapes[:n]]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_matches_plain(cuda, shape, dtype, causal):
-    B, T, H, Dh = shape
+@pytest.mark.parametrize("stats", [False, True])
+def test_flash_kernel_matches_plain(cuda, shape, dtype, causal, stats):
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for _ in range(3))
-    lens = _lens(B, T).to(cuda)
+    q, k, v = _qkv(shape, 3, g, cuda, dtype)
+    lens = _lens(k.shape[0], k.shape[1]).to(cuda)
     before = tatt.flash_attention_cuda.launches
-    got = tatt.flash_attention_cuda(q, k, v, lens, causal)
+    got = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=stats)
     torch.cuda.synchronize()
     assert tatt.flash_attention_cuda.launches == before + 1
-    ref = tatt.flash_attention_plain(q, k, v, lens, causal)
-    assert got.dtype == dtype and got.shape == shape
+    ref = tatt.flash_attention_plain(q, k, v, lens, causal, return_stats=stats)
+    if stats:
+        (got, m, l), (ref, ref_m, ref_l) = got, ref
+        torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-4)
+        torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=0)
+    assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=atol)
+
+
+def _misaligned(x):
+    """x's values in a view whose base sits 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = buf.as_strided(x.shape, x.stride(), storage_offset=1)
+    view.copy_(x)
+    assert not tatt.tma_aligned(view.data_ptr(), view.element_size(), view.shape, view.stride())
+    return view
+
+
+def test_flash_kernels_copy_views_that_tma_cannot_read(cuda):
+    """bf16 views off the 16-byte rule are copied (and counted), then run on
+    the tensor-core path with the plain results."""
+    g = torch.Generator().manual_seed(7)
+    shape = (2, 70, 2, 64)
+    q, k, v, go = (torch.randn(shape, generator=g).to(cuda, torch.bfloat16) for _ in range(4))
+    lens = torch.tensor([70, 1], dtype=torch.int32, device=cuda)
+    fc, bc = tatt.flash_attention_cuda.layout_copies, tatt.flash_attention_bwd_cuda.layout_copies
+    out, m, l = tatt.flash_attention_cuda(_misaligned(q), k, v, lens, True, return_stats=True)
+    got = tatt.flash_attention_bwd_cuda(q, _misaligned(k), v, lens, True, _misaligned(go), m, l)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_cuda.layout_copies == fc + 1
+    assert tatt.flash_attention_bwd_cuda.layout_copies == bc + 2
+    torch.testing.assert_close(out.float(), tatt.flash_attention_plain(q, k, v, lens, True).float(),
+                               rtol=0, atol=2e-2)
+    want = tatt.flash_attention_bwd_plain(q, k, v, lens, True, go, m, l)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_to_max(a, b, 2e-2, name)
+
+
+@pytest.mark.parametrize("dtype,head_dim,tc", [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+                                               (torch.bfloat16, 256, False), (torch.float32, 64, False),
+                                               (torch.float32, 128, False)])
+def test_tensor_core_counters_follow_the_dispatch(cuda, dtype, head_dim, tc):
+    g = torch.Generator().manual_seed(8)
+    q, k, v, go = (torch.randn(2, 40, 2, head_dim, generator=g).to(cuda, dtype) for _ in range(4))
+    f0, b0 = tatt.flash_attention_cuda.tc_launches, tatt.flash_attention_bwd_cuda.tc_launches
+    _, m, l = tatt.flash_attention_cuda(q, k, v, None, True, return_stats=True)
+    tatt.flash_attention_bwd_cuda(q, k, v, None, True, go, m, l)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_cuda.tc_launches == f0 + tc
+    assert tatt.flash_attention_bwd_cuda.tc_launches == b0 + tc
+    # the SIMT path on request gives the same function
+    simt = tatt.flash_attention_cuda(q, k, v, None, True, simt=True)
+    assert tatt.flash_attention_cuda.tc_launches == f0 + tc
+    torch.testing.assert_close(simt.float(), tatt.flash_attention_plain(q, k, v, None, True).float(),
+                               rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -92,14 +160,14 @@ def _close_to_max(got, ref, rel, what):
     assert err <= rel * ref.abs().max().item(), f"{what}: err {err} vs max {ref.abs().max().item()}"
 
 
-@pytest.mark.parametrize("shape", [(2, 300, 4, 64), (3, 77, 4, 128), (2, 40, 2, 256)])
+@pytest.mark.parametrize("shape", [(4, 1, 2, 64, 70), (4, 32, 2, 64), (2, 300, 4, 64),
+                                   (4, 1000, 2, 64), (3, 77, 4, 128), (2, 40, 2, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal):
-    B, T, H, Dh = shape
     g = torch.Generator().manual_seed(3)
-    q, k, v, go = (torch.randn(shape, generator=g).to(cuda, dtype) for _ in range(4))
-    lens = _lens(B, T).to(cuda)
+    q, k, v, go = _qkv(shape, 4, g, cuda, dtype)
+    lens = _lens(k.shape[0], k.shape[1]).to(cuda)
     out, m, l = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
     ref_out, ref_m, ref_l = tatt.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
     torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-4)
