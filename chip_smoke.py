@@ -270,10 +270,10 @@ def ptxas_report() -> dict:
     return out
 
 
-def device_breakdown(fn, n: int = 5) -> dict:
-    """Device ms per call of each kernel ``fn`` launches, by name, from a
-    ``torch.profiler`` trace of n warm calls ({} if the trace has no device
-    time)."""
+def trace_kernels(fn, n: int = 2) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by name, from
+    a ``torch.profiler`` trace of n warm calls (each kernel's own span)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -282,13 +282,11 @@ def device_breakdown(fn, n: int = 5) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-        m = re.search(r"(flash_\w+?_kernel)<(\d+)", ev.key)
-        if us and m:
-            out[f"{m.group(1)}<{m.group(2)}>"] = us / n / 1e3
-    return out
+    ms = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms[ev.name] = ms.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
+    return ms
 
 
 def phase_kernels(dev: torch.device, card: str) -> dict:
@@ -392,7 +390,12 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                                                                   return_stats=True, simt=True)),
             "flash_bwd": cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l,
                                                                       simt=True))}
-    split = device_breakdown(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
+    split = {}
+    for name, t in trace_kernels(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l),
+                                 5).items():
+        hit = re.search(r"(flash_\w+?_kernel)<(\d+)", name)
+        if hit:
+            split[f"{hit.group(1)}<{hit.group(2)}>"] = t
     mask = sdpa_mask(lens, 1024, True)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -785,34 +788,6 @@ def phase_train_reference(dev: torch.device) -> None:
           f"launches fwd {launched[0]} bwd {launched[1]}")
 
 
-def step_breakdown(fn, n: int = 2) -> tuple[dict, list]:
-    """Device ms per call of ``fn`` by kernel group (kernels B and C,
-    matrix products, the rest), and the five costliest kernels, from a
-    ``torch.profiler`` trace of n warm calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    groups = {"attention B, C": 0.0, "matmul": 0.0, "other": 0.0}
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.time_range.elapsed_us() / 1e3 / n  # a kernel's own span on the device
-        name = ev.name
-        key = ("attention B, C" if "flash_" in name else
-               "matmul" if re.search(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", name) else "other")
-        groups[key] += ms
-        by_name[name[:48]] = by_name.get(name[:48], 0.0) + ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return groups, [(k, round(v, 3)) for k, v in top]
-
-
 def _steps_ms(step, state, batch, n: int = 5) -> float:
     """Warm milliseconds per train step, host clock around n steps that end
     in a synchronize (the numpy batch is uploaded in every step)."""
@@ -871,7 +846,12 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
     print(f"train: PLM warm step {ms:.2f} ms, {tokens / ms * 1e3:.0f} tokens/s "
           f"(B={PLM_B}, L={PLM_L}, padded; {sum(PLM_LENS) / ms * 1e3:.0f} valid tokens/s), "
           f"peak device memory {peak:.2f} GiB [{card}]")
-    groups, top = step_breakdown(lambda: step(st, batch))
+    groups = {"attention B, C": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = trace_kernels(lambda: step(st, batch))
+    for name, t in kernels.items():
+        groups["attention B, C" if "flash_" in name else "matmul" if re.search(
+            r"gemm|xmma|cutlass|cublas|nvjet|sm90_", name) else "other"] += t
+    top = [(name[:48], round(t, 3)) for name, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]]
     busy = sum(groups.values())
     print(f"train: trace of a warm step (torch.profiler), device ms by kernel group "
           f"{ {k: round(v, 3) for k, v in groups.items()} }, busy {busy:.2f} of {ms:.2f} ms "

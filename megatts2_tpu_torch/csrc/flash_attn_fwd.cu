@@ -276,6 +276,7 @@ constexpr int BM = 64;        // query rows of a block: one consumer warpgroup
 constexpr int BN = 64;        // keys per tile
 constexpr int STAGES = 2;     // K/V ring
 constexpr int THREADS = 160;  // warps 0-3 compute, warp 4 loads
+static_assert(BM == BN, "Q and K/V tiles share one column-block size");
 
 template <int DH>
 struct Layout {                                // byte offsets in shared memory

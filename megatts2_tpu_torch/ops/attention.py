@@ -17,8 +17,8 @@ the output is in q's dtype.
   B (``csrc/flash_attn_fwd.cu``) and kernel C (``csrc/flash_attn_bwd.cu``).
   bf16 at head dims 64 and 128 takes their tensor-core path (``wgmma`` and
   TMA loads, :func:`uses_tensor_cores`); fp32 and head dim 256 their SIMT
-  path.  The tensor-core path's forward rounds P to bf16 for P V (the row
-  sum stays fp32).  TMA reads a tensor only from a 16-byte-aligned base with
+  path.  The tensor-core path's forward splits P into bf16 hi + lo parts
+  for P V (the row sum stays fp32).  TMA reads a tensor only from a 16-byte-aligned base with
   16-byte strides (:func:`tma_aligned`); a view that breaks this is copied
   first, counted in each wrapper's ``layout_copies``.
 * :class:`FlashAttentionFunction` — the ``custom_vjp``: forward by kernel B
@@ -202,7 +202,7 @@ def flash_attention_cuda(
         )
     check(err, "flash attention kernel")
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.tc_launches += tc
+    flash_attention_cuda.tc_launches += int(tc)
     return (out, m, l) if return_stats else out
 
 
@@ -259,7 +259,7 @@ def flash_attention_bwd_cuda(
         )
     check(err, "flash attention backward kernel")
     flash_attention_bwd_cuda.launches += 1
-    flash_attention_bwd_cuda.tc_launches += tc
+    flash_attention_bwd_cuda.tc_launches += int(tc)
     return dq, dk, dv
 
 
