@@ -176,7 +176,8 @@ def tc_edges(dev: torch.device, gen: torch.Generator, err: dict) -> None:
     """Kernels B (with and without statistics) and C on the tensor-core path
     at its edges, k_lens holding 0 and 1, causal and not, against the plain
     versions; each line also gives the SIMT path's error on the same inputs
-    (the PR 1/2 kernels).  Then views off the TMA rule: copied, counted, right."""
+    (the first kernels, kept for fp32 and Dh 256).  Then views off the TMA rule:
+    copied, counted, right."""
     from megatts2_tpu_torch.ops import attention as att
 
     bf = torch.bfloat16
@@ -194,7 +195,7 @@ def tc_edges(dev: torch.device, gen: torch.Generator, err: dict) -> None:
                 em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
                 grads = att.flash_attention_bwd_cuda(q, k, v, lens, causal, g, m, l, simt=simt)
                 ge = _rel_errs(grads, att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l))
-                line.append(f"{'simt (PR 1/2)' if simt else 'tensor cores'}: fwd {e:.3g}, m {em:.3g}, "
+                line.append(f"{'simt' if simt else 'tensor cores'}: fwd {e:.3g}, m {em:.3g}, "
                             f"l rel {el:.3g}, " + ", ".join(f"{n} {a:.3g}/{t:.3g}" for n, (a, t)
                                                            in zip(("dq", "dk", "dv"), ge)))
                 check(all(bool(torch.isfinite(x).all()) for x in (out, o2, *grads)),
@@ -385,7 +386,7 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                      lambda: att.flash_attention_cuda(q, k, v, lens, True, return_stats=True))
     t_bwd = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, True, g, m, l),
                      lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
-    # the PR 1/2 (SIMT) kernels on the same inputs, for the before/after lines
+    # the SIMT kernels (the first version) on the same inputs, for the before/after lines
     simt = {"flash_plm": cuda_ms(lambda: att.flash_attention_cuda(q, k, v, lens, True,
                                                                   return_stats=True, simt=True)),
             "flash_bwd": cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l,
@@ -428,20 +429,20 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         b = bound(4 * q.numel() * 2, flops[key], "bf16")
         times[key], lib[key], bounds[key] = (tk, tp), t_lib, b
         print(f"time flash_attention prefill (8,{P},16,64) bf16 causal: kernel {tk:.4f} ms, simt "
-              f"(PR 1/2) {simt[key]:.4f} ms, plain {tp:.4f} ms, library (SDPA) {t_lib:.4f} ms, bound "
+              f"{simt[key]:.4f} ms, plain {tp:.4f} ms, library (SDPA) {t_lib:.4f} ms, bound "
               f"{b[0]:.4f} ms by {b[1]}; max_abs_err {e:.3g} [{card}]")
     times.update({"flash_plm": t_fwd, "flash_bwd": t_bwd})
     for name, key in (("flash_attention +stats (8,1024,16,64) bf16 causal", "flash_plm"),
                       ("flash_attention_bwd (8,1024,16,64) bf16 causal", "flash_bwd")):
         tk, tp = times[key]
-        print(f"time {name}: kernel {tk:.4f} ms, simt (PR 1/2) {simt[key]:.4f} ms, plain {tp:.4f} ms, "
+        print(f"time {name}: kernel {tk:.4f} ms, simt {simt[key]:.4f} ms, plain {tp:.4f} ms, "
               f"library (SDPA) {lib[key]:.4f} ms, bound {bounds[key][0]:.4f} ms by {bounds[key][1]} [{card}]")
     # achieved rate: the kept (query, key) pairs times the operations a pair
     # needs (4 Dh forward; 10 Dh backward: the five products), over the time
     tflops = {}
     for key in ("prefill_32", "prefill_256", "flash_plm", "flash_bwd"):
         tflops[key] = flops[key] / times[key][0] / 1e9
-        print(f"tflops {key}: tensor cores {tflops[key]:.1f} TFLOP/s, simt (PR 1/2) "
+        print(f"tflops {key}: tensor cores {tflops[key]:.1f} TFLOP/s, simt "
               f"{flops[key] / simt[key] / 1e9:.1f}, library (SDPA) {flops[key] / lib[key] / 1e9:.1f} "
               f"({flops[key] / 1e9:.2f} GFLOP; peak 989) [{card}]")
     print(f"trace flash_attention_bwd (8,1024,16,64) bf16 causal, device ms a call by kernel "

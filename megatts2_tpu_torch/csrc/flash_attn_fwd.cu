@@ -41,7 +41,7 @@
 //    * TMA needs a 16-byte-aligned base and 16-byte strides;
 //      ops/attention.py copies a view that breaks this before the launch.
 //
-// 2. fp32 (all head dims) and bf16 at Dh 256 — the SIMT path of PR 1/2
+// 2. fp32 (all head dims) and bf16 at Dh 256 — the SIMT path, the first version
 //    (flash_fwd_kernel).  fp32 keeps full-fp32 products (TF32 wgmma would
 //    not); Dh 256 is the MRTE's short, launch-bound case.  What bounds it:
 //    at the MRTE's (8, 64, 2, 256) ~34 MFLOP over 16 (batch, head) pairs,
