@@ -8,23 +8,28 @@ Phases, each printing a line; any failure raises and exits non-zero:
 2. build — compiles the hand-written kernels from ``megatts2_tpu_torch/csrc``
    with nvcc (``build/torch_kernels/``) and loads them.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the slices' shapes and beyond, in fp32 and bf16: kernel A, kernel B and
-   its row statistics, kernel C (the attention backward) at the PLM's
-   training shape (8, 1024, 16, 64) causal with mixed lengths that include
-   0, and at (2, 300, 4, 128) non-causal; kernels B (with and without
-   statistics) and C on their bf16 tensor-core path at its edges (Tq of 1,
-   32, 300 and 1000 at head dim 64, (3, 77, 4, 128); k_lens holding 0 and
-   1; causal and not), each line beside the SIMT path's error on the same
-   inputs, and on views off TMA's 16-byte rule (copied and counted);
-   kernel D (the copy pump) at (3, 16, 256) and the tool's (144, 256,
-   4096) for 1, 2 and 16 passes, both outputs exact; then kernel and plain
-   timed in turns (plain, kernel, kernel, plain) with CUDA events, each
-   beside its bound (the larger of its bytes over 3.35 TB/s and its
-   operations over the peak rate of their type) and one PyTorch library
-   call that computes the same function; the attention kernels also beside
-   their SIMT path, with the achieved TFLOP/s, the backward's two passes
-   from a ``torch.profiler`` trace, and each tensor-core kernel's HGMMA
-   count (``cuobjdump -sass``) and spills (the build's ptxas log).
+   the slices' shapes and beyond, in fp32 and bf16: kernel A at (64001,),
+   (62377,), (8, 131000), (1, 513) and (3, 777), kernel B and its row
+   statistics, kernel C (the attention backward) at the PLM's training
+   shape (8, 1024, 16, 64) causal with mixed lengths that include 0, and
+   at (2, 300, 4, 128) non-causal; kernels B (with and without statistics)
+   and C on their bf16 tensor-core path at its edges (Tq of 1, 32, 300 and
+   1000 at head dim 64, (3, 77, 4, 128); at head dim 256, where only B has
+   the path, the MRTE's (8, 64, 2, 256) and (1, 3, 2, 256), (2, 300, 4,
+   256) and one row against 70 keys; k_lens holding 0 and 1; causal and
+   not), each line beside the SIMT path's error on the same inputs, and on
+   views off TMA's 16-byte rule (copied and counted); kernel D (the copy
+   pump) at (3, 16, 256) and the tool's (144, 256, 4096) for 1, 2 and 16
+   passes, both outputs exact; then kernel and plain timed in turns
+   (plain, kernel, kernel, plain) with CUDA events, each beside its bound
+   (the larger of its bytes over 3.35 TB/s and its operations over the
+   peak rate of their type) and one PyTorch library call that computes the
+   same function; kernels A and B at the synthesis shapes also split into
+   device us (``torch.profiler``) and the host's issue us a call
+   (``tools/kernel_times.py``); the attention kernels also beside their
+   SIMT path, with the achieved TFLOP/s, the backward's two passes from a
+   ``torch.profiler`` trace, and each tensor-core kernel's HGMMA count
+   (``cuobjdump -sass``) and spills (the build's ptxas log).
 4. reference — small fp32 slices on the card (kernels) against the same
    modules on the CPU (plain versions): greedy from BOS with Vocos, then an
    int8 PLM sampled at top-k 8 with injected noise after a prefilled
@@ -36,8 +41,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    max_frames=512), three times: the float PLM with Vocos, greedy; the int8
    PLM with Vocos, greedy; the int8 PLM with HiFi-GAN, sampled at top-k 8
    after a prosody prompt.  Before each, kernel A's and kernel B's launch
-   counters are set to 0; after it, both must be > 0, and on the prompted
-   run kernel B's tensor-core counter too (the prefill).  Then warm wall
+   counters are set to 0; after it, both must be > 0, and kernel B's
+   tensor-core counter too (the MRTE; on the prompted run also the
+   prefill).  Then warm wall
    times of the batch and of each cascade stage.
 6. bandwidth — ``megatts2_tpu_torch.tools.bw_ceiling`` at its full shapes:
    read_reduce, dots, kernel D at 16 and 64 passes and their fit, and the
@@ -161,9 +167,11 @@ def phase_build() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {library_path()}")
 
 # the tensor-core path's edges (bf16): (B, Tq, H, Dh, Tk), Tq of 1, 32, 300
-# and 1000 inside 64-row tiles at Dh 64, and Dh 128
+# and 1000 inside 64-row tiles at Dh 64, Dh 128, and Dh 256 (output columns
+# split over two blocks): the MRTE's two shapes, several key tiles, one row
 TC_EDGES = ((4, 1, 2, 64, 70), (4, 32, 2, 64, 32), (4, 300, 2, 64, 300), (4, 1000, 2, 64, 1000),
-            (3, 77, 4, 128, 77))
+            (3, 77, 4, 128, 77), (8, 64, 2, 256, 64), (1, 3, 2, 256, 3), (2, 300, 4, 256, 300),
+            (4, 1, 2, 256, 70))
 
 
 def _rel_errs(got, ref) -> list[tuple[float, float]]:
@@ -176,7 +184,8 @@ def tc_edges(dev: torch.device, gen: torch.Generator, err: dict) -> None:
     """Kernels B (with and without statistics) and C on the tensor-core path
     at its edges, k_lens holding 0 and 1, causal and not, against the plain
     versions; each line also gives the SIMT path's error on the same inputs
-    (the first kernels, kept for fp32 and Dh 256).  Then views off the TMA rule:
+    (the first kernels, kept for fp32 and, in kernel C, Dh 256, whose
+    backward runs on them on both lines).  Then views off the TMA rule:
     copied, counted, right."""
     from megatts2_tpu_torch.ops import attention as att
 
@@ -184,7 +193,7 @@ def tc_edges(dev: torch.device, gen: torch.Generator, err: dict) -> None:
     for B, Tq, H, Dh, Tk in TC_EDGES:
         q, g = (torch.randn(B, Tq, H, Dh, generator=gen).to(dev, bf) for _ in range(2))
         k, v = (torch.randn(B, Tk, H, Dh, generator=gen).to(dev, bf) for _ in range(2))
-        lens = torch.tensor([Tk, 0, 1, Tk // 3 + 1][:B], dtype=torch.int32, device=dev)
+        lens = torch.tensor(([Tk, 0, 1, Tk // 3 + 1] * B)[:B], dtype=torch.int32, device=dev)
         for causal in (False, True):
             ref, pm, pl = att.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
             line = []
@@ -271,28 +280,10 @@ def ptxas_report() -> dict:
     return out
 
 
-def trace_kernels(fn, n: int = 2) -> dict:
-    """Device ms per call of each kernel that ``fn`` launches, by name, from
-    a ``torch.profiler`` trace of n warm calls (each kernel's own span)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ms = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            ms[ev.name] = ms.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
-    return ms
-
-
 def phase_kernels(dev: torch.device, card: str) -> dict:
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel, pump
+    from megatts2_tpu_torch.tools.kernel_times import split_times, trace_kernels
 
     gen = torch.Generator().manual_seed(SEED)
     err = {"flash": 0.0, "mel": 0.0}
@@ -311,7 +302,8 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                 err["flash"] = max(err["flash"], e)
                 print(f"kernel flash_attention {shape} {str(dtype)[6:]} causal={causal}: "
                       f"max_abs_err {e:.3g} (atol {ATOL_ATT[dtype]})")
-    for shape in ((64001,), (62377,), (8, 131000)):  # __call__'s prompts, the batch
+    # __call__'s prompts, the batch, the shortest signal (3 frames), ragged rows
+    for shape in ((64001,), (62377,), (8, 131000), (1, 513), (3, 777)):
         y = (torch.randn(shape, generator=gen) * 0.1).to(dev)
         got, ref = mel.mel_spectrogram_cuda(y), mel.mel_spectrogram_plain(y)
         e = (got - ref).abs().max().item()
@@ -328,7 +320,16 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                      lambda: att.flash_attention_cuda(q, k, v, lens))
     y = (torch.randn(8, 131000, generator=gen) * 0.1).to(dev)
     t_mel = in_turns(lambda: mel.mel_spectrogram_plain(y), lambda: mel.mel_spectrogram_cuda(y))
-    window, fb, _ = mel._tables(1024, 1024, 80, dev)
+    simt = {"flash_mrte": cuda_ms(lambda: att.flash_attention_cuda(q, k, v, lens, simt=True))}
+    y1 = (torch.randn(64001, generator=gen) * 0.1).to(dev)
+    # where a call's time goes: event ms, the kernel's device us (torch.profiler)
+    # and the host's issue us, each path and kernel
+    split = {"flash_mrte": split_times(lambda: att.flash_attention_cuda(q, k, v, lens), "flash"),
+             "flash_mrte_simt": split_times(lambda: att.flash_attention_cuda(q, k, v, lens, simt=True),
+                                            "flash"),
+             "mel": split_times(lambda: mel.mel_spectrogram_cuda(y), "mel"),
+             "mel_prompt": split_times(lambda: mel.mel_spectrogram_cuda(y1), "mel")}
+    window, fb = mel._tables(1024, 1024, 80, dev)
 
     def mel_library():  # torch.stft + filterbank matmul + log clamp: a composite of library calls
         spec = torch.stft(y, 1024, 256, 1024, window=window, center=True, pad_mode="reflect",
@@ -340,15 +341,33 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                v.transpose(1, 2), attn_mask=sdpa_mask(lens, 64, False)))}
     # per frame: a real 1024-point FFT (5/2 N log2 N), |X| (3 a bin), the
-    # filterbank (2 a weight), the log
-    mel_ops = y.shape[0] * frames * (2.5 * 1024 * 10 + 3 * 513 + 2 * 513 * 80 + 80)
+    # filterbank (2 a nonzero weight: the function needs no others), the log
+    nnz = int((mel.mel_filterbank() != 0).sum())
+    mel_ops = y.shape[0] * frames * (2.5 * 1024 * 10 + 3 * 513 + 2 * nnz + 80)
+    dense_ops = y.shape[0] * frames * (2.5 * 1024 * 10 + 3 * 513 + 2 * 513 * 80 + 80)
     bounds = {"mel": bound(y.numel() * 4 + y.shape[0] * frames * 80 * 4, mel_ops, "fp32"),
               "flash_mrte": bound(4 * q.numel() * 2,
                                   4 * 256 * attn_pairs(lens.cpu().numpy(), 64, 2, False), "bf16")}
+    print(f"bound mel_spectrogram (8,131000): {mel_ops / 1e9:.4f} GFLOP with the filterbank's {nnz} "
+          f"nonzeros ({bounds['mel'][0]:.4f} ms by {bounds['mel'][1]}); counted dense (513 x 80) "
+          f"{dense_ops / 1e9:.4f} GFLOP ({bound(0, dense_ops, 'fp32')[0]:.4f} ms)")
     for name, (tk, tp), key in (("flash_attention (8,64,2,256) bf16", t_att, "flash_mrte"),
                                 ("mel_spectrogram (8,131000) fp32", t_mel, "mel")):
-        print(f"time {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, library {lib[key]:.4f} ms, "
+        extra = f", simt {simt[key]:.4f} ms" if key in simt else ""
+        print(f"time {name}: kernel {tk:.4f} ms{extra}, plain {tp:.4f} ms, library {lib[key]:.4f} ms, "
               f"bound {bounds[key][0]:.4f} ms by {bounds[key][1]} [{card}]")
+    for name, key, b_key in (("flash_attention (8,64,2,256) bf16 tensor cores", "flash_mrte", "flash_mrte"),
+                             ("flash_attention (8,64,2,256) bf16 simt", "flash_mrte_simt", "flash_mrte"),
+                             ("mel_spectrogram (8,131000) fp32", "mel", "mel"),
+                             ("mel_spectrogram (64001,) fp32", "mel_prompt", None)):
+        sp = split[key]
+        dev_us = sp["device_us"]
+        side = "not measured" if dev_us is None else (
+            "host-bound" if sp["host_us"] > dev_us else "device-bound")
+        ref = (f"; bound {bounds[b_key][0]:.4f} ms, library {lib[b_key]:.4f} ms" if b_key else "")
+        print(f"time split {name}: event {sp['event_ms']:.4f} ms, device "
+              f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler), host "
+              f"issue {sp['host_us']:.2f} us a call: {side}{ref} [{card}]")
 
     # kernel B's row statistics and kernel C against the plain backward
     err["flash_bwd"] = 0.0
@@ -387,16 +406,16 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     t_bwd = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, True, g, m, l),
                      lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l))
     # the SIMT kernels (the first version) on the same inputs, for the before/after lines
-    simt = {"flash_plm": cuda_ms(lambda: att.flash_attention_cuda(q, k, v, lens, True,
-                                                                  return_stats=True, simt=True)),
-            "flash_bwd": cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l,
-                                                                      simt=True))}
-    split = {}
+    simt.update({"flash_plm": cuda_ms(lambda: att.flash_attention_cuda(q, k, v, lens, True,
+                                                                       return_stats=True, simt=True)),
+                 "flash_bwd": cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m,
+                                                                           l, simt=True))})
+    passes = {}
     for name, t in trace_kernels(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l),
                                  5).items():
         hit = re.search(r"(flash_\w+?_kernel)<(\d+)", name)
         if hit:
-            split[f"{hit.group(1)}<{hit.group(2)}>"] = t
+            passes[f"{hit.group(1)}<{hit.group(2)}>"] = t
     mask = sdpa_mask(lens, 1024, True)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -446,13 +465,13 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
               f"{flops[key] / simt[key] / 1e9:.1f}, library (SDPA) {flops[key] / lib[key] / 1e9:.1f} "
               f"({flops[key] / 1e9:.2f} GFLOP; peak 989) [{card}]")
     print(f"trace flash_attention_bwd (8,1024,16,64) bf16 causal, device ms a call by kernel "
-          f"(torch.profiler): {split or 'not measured'} [{card}]")
+          f"(torch.profiler): {passes or 'not measured'} [{card}]")
     hgmma, regs = sass_hgmma(), ptxas_report()
     print(f"sass HGMMA instructions per tensor-core kernel: {hgmma} [{card}]")
     for name, rep in regs.items():
         print(f"ptxas {name}: {rep}")
-    check(len(hgmma) == 6 and all(n > 0 for n in hgmma.values()), f"HGMMA counts {hgmma}")
-    check(len(regs) == 6 and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs.values()),
+    check(len(hgmma) == 7 and all(n > 0 for n in hgmma.values()), f"HGMMA counts {hgmma}")
+    check(len(regs) == 7 and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs.values()),
           f"ptxas report {regs}")
 
     # kernel D: both outputs exact, at a small shape and the tool's
@@ -480,7 +499,7 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
           f"{bounds['pump'][0]:.4f} ms by {bounds['pump'][1]} [{card}]")
     del w, w32, dst
     torch.cuda.synchronize()
-    return {"err": err, "lib": lib, "bound": bounds, "simt": simt, "tflops": tflops,
+    return {"err": err, "lib": lib, "bound": bounds, "simt": simt, "tflops": tflops, "split": split,
             "ms": {"flash": t_att, "mel": t_mel, "pump": t_pump, **times}}
 
 
@@ -646,9 +665,9 @@ def _drive_slice(tts, label: str, card: str, root: str, wavs: str, sig: torch.Te
     launches = {"mel": mel.mel_spectrogram_cuda.launches, "flash": att.flash_attention_cuda.launches,
                 "flash_tc": att.flash_attention_cuda.tc_launches}
     print(f"slice {label}: launches on this path {launches} (flash_tc: kernel B on the tensor cores, "
-          f"the prompt prefill)")
+          f"the MRTE and the prompt prefill)")
     check(launches["mel"] > 0 and launches["flash"] > 0, f"{label}: a kernel was not launched: {launches}")
-    check(features is None or launches["flash_tc"] > 0, f"{label}: the prefill missed the tensor cores")
+    check(launches["flash_tc"] > 0, f"{label}: kernel B missed the tensor cores")
 
     prompt = _read_prompt(os.path.join(wavs, "a.wav"))
     gen_len = len(full) - len(prompt)
@@ -847,6 +866,8 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
     print(f"train: PLM warm step {ms:.2f} ms, {tokens / ms * 1e3:.0f} tokens/s "
           f"(B={PLM_B}, L={PLM_L}, padded; {sum(PLM_LENS) / ms * 1e3:.0f} valid tokens/s), "
           f"peak device memory {peak:.2f} GiB [{card}]")
+    from megatts2_tpu_torch.tools.kernel_times import trace_kernels
+
     groups = {"attention B, C": 0.0, "matmul": 0.0, "other": 0.0}
     kernels = trace_kernels(lambda: step(st, batch))
     for name, t in kernels.items():
@@ -901,6 +922,9 @@ def main() -> None:
         train = phase_train(dev, card, root)
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
 
+    def _ms(us):
+        return None if us is None else us / 1e3
+
     def row(name, source, replaces, key, err_key, launches, shape, **extra):
         ms, plain_ms = k["ms"][key]
         return {"name": name, "route": "cuda", "source": f"megatts2_tpu_torch/csrc/{source}",
@@ -912,7 +936,9 @@ def main() -> None:
     record = {"kernels": [
         row("mel_spectrogram", "mel.cu", "megatts2_tpu/ops/mel.py:190", "mel", "mel", synth["mel"],
             "(8, 131000) fp32", library="torch.stft + filterbank matmul + log (composite)",
-            launches_by_path={label: s["mel"] for label, s in slices.items()}),
+            launches_by_path={label: s["mel"] for label, s in slices.items()},
+            device_ms=_ms(k["split"]["mel"]["device_us"]), host_ms=k["split"]["mel"]["host_us"] / 1e3,
+            device_ms_prompt=_ms(k["split"]["mel_prompt"]["device_us"])),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
             "flash_plm", "flash", synth["flash"] + train["flash"],
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
@@ -922,6 +948,9 @@ def main() -> None:
             tflops=k["tflops"]["flash_plm"],
             ms_mrte=k["ms"]["flash"][0], plain_ms_mrte=k["ms"]["flash"][1],
             bound_ms_mrte=k["bound"]["flash_mrte"][0], library_ms_mrte=k["lib"]["flash_mrte"],
+            ms_simt_mrte=k["simt"]["flash_mrte"], device_ms_mrte=_ms(k["split"]["flash_mrte"]["device_us"]),
+            device_ms_simt_mrte=_ms(k["split"]["flash_mrte_simt"]["device_us"]),
+            host_ms_mrte=k["split"]["flash_mrte"]["host_us"] / 1e3,
             ms_prefill_256=k["ms"]["prefill_256"][0], ms_simt_prefill_256=k["simt"]["prefill_256"],
             library_ms_prefill_256=k["lib"]["prefill_256"]),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",

@@ -12,8 +12,9 @@
 //
 // Two implementations, chosen by dtype and head dim (dispatch, not fallback):
 //
-// 1. bf16 at Dh 64 and 128 — the tensor-core path (flash_fwd_tc_kernel),
-//    which the PLM's training and its prompt prefill take.  What bounds it:
+// 1. bf16 at Dh 64, 128 and 256 — the tensor-core path (flash_fwd_tc_kernel),
+//    which the PLM's training, its prompt prefill and the MRTE's phone
+//    encoder (Dh 256) take.  What bounds it:
 //    operations.  At the PLM's (8, 1024, 16, 64) causal shape it does
 //    4 Dh FLOP per kept (query, key) pair, ~25 GFLOP, ~0.025 ms at 989
 //    TFLOP/s against ~0.02 ms for its 68 MB.  The design:
@@ -40,13 +41,22 @@
 //      are launched longest (causal) first.
 //    * TMA needs a 16-byte-aligned base and 16-byte strides;
 //      ops/attention.py copies a view that breaks this before the launch.
+//    * At Dh 256 (the MRTE's (8, 64, 2, 256): ~34 MFLOP over 16 (batch,
+//      head) pairs and one 64-row q tile each) the output's 256 columns are
+//      split over two blocks (grid z).  Each computes the full S over Dh 256
+//      (cheap at Tk <= 64) but loads and accumulates only its 128 columns of
+//      V: O keeps the Dh 128 register plan (no spills under 2 blocks per SM
+//      of registers), the MRTE shape gets 32 blocks, shared memory is Q 32
+//      KB + 2 stages of K 32 + V 16 KB.  Only the first half writes m and l
+//      (both compute the same); no atomics, deterministic.
 //
-// 2. fp32 (all head dims) and bf16 at Dh 256 — the SIMT path, the first version
-//    (flash_fwd_kernel).  fp32 keeps full-fp32 products (TF32 wgmma would
-//    not); Dh 256 is the MRTE's short, launch-bound case.  What bounds it:
-//    at the MRTE's (8, 64, 2, 256) ~34 MFLOP over 16 (batch, head) pairs,
-//    launch latency and the dependent chain of shared-memory reads; at long
-//    sequences FMA issue.  The design:
+// 2. fp32 (all head dims) — the SIMT path, the first version
+//    (flash_fwd_kernel); bf16 reaches it only when the caller asks (simt),
+//    to compare the two.  fp32 keeps full-fp32 products (TF32 wgmma would
+//    not).  What bounds it: at short sequences launch latency and the
+//    dependent chain of shared-memory reads (at the MRTE's (8, 64, 2, 256)
+//    bf16, ~31 us of device time on an H100); at long sequences FMA issue.
+//    The design:
 //    * K/V stream through shared memory in 32-key tiles, converted to
 //      fp32, with a running max and sum per row in fp32, P kept in fp32.
 //    * A block takes BQ = 16 query rows of one (b, h): 4 warps of 4 rows.
@@ -269,7 +279,7 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
 }
 
 
-// ---- the tensor-core path: bf16, Dh 64 and 128 -----------------------------
+// ---- the tensor-core path: bf16, Dh 64, 128 and 256 ------------------------
 namespace tc {
 
 constexpr int BM = 64;        // query rows of a block: one consumer warpgroup
@@ -278,12 +288,19 @@ constexpr int STAGES = 2;     // K/V ring
 constexpr int THREADS = 160;  // warps 0-3 compute, warp 4 loads
 static_assert(BM == BN, "Q and K/V tiles share one column-block size");
 
+// A block accumulates DV of the DH output columns: all of them at Dh 64 and
+// 128; at Dh 256 one half, the other half in a second block (grid z), so O
+// keeps the Dh 128 register plan and the MRTE's 16 (batch, head) pairs give
+// 32 blocks.  Both blocks compute the full S = Q K^T over Dh 256.
 template <int DH>
 struct Layout {                                // byte offsets in shared memory
-  static constexpr int TILE = BN * DH * 2;     // one 64-row bf16 tile (BM == BN)
+  static constexpr int DV = DH > 128 ? 128 : DH;
+  static constexpr int TILE = BN * DH * 2;     // one 64-row bf16 tile of Q or K (BM == BN)
+  static constexpr int VTILE = BN * DV * 2;    // the block's columns of a V tile
   static constexpr int Q = 0;
-  static constexpr int RING = TILE;            // stage s: K at RING + 2 s TILE, V after it
-  static constexpr int BARS = RING + 2 * STAGES * TILE;
+  static constexpr int RING = TILE;            // stage s: K at RING + s STAGE, V after it
+  static constexpr int STAGE = TILE + VTILE;
+  static constexpr int BARS = RING + STAGES * STAGE;
   static constexpr int BYTES = BARS + 64 + 1024;  // barriers; slack to align to 1024
 };
 
@@ -336,8 +353,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
                     float* __restrict__ l_out, int Tq, int Tk, int H, Strides so, int causal,
                     float scale) {
   using L = Layout<DH>;
-  constexpr int NB = DH / 64;  // 128-byte column blocks of a tile
-  constexpr int KS = DH / 16;  // k16 steps of Q K^T
+  constexpr int NB = DH / 64;      // 128-byte column blocks of a Q or K tile
+  constexpr int NV = L::DV / 64;   // ... of this block's V columns and of O
+  constexpr int KS = DH / 16;      // k16 steps of Q K^T
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -355,6 +373,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   }
   const int ntiles = (kend + BN - 1) / BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col0 = blockIdx.z * L::DV;  // this block's first V and O column
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -374,12 +393,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) sm90::mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
-        sm90::mbar_expect_tx(&full[s], 2 * L::TILE);
-        unsigned char* kt = smem + L::RING + 2 * s * L::TILE;
-        for (int nb = 0; nb < NB; ++nb) {
+        sm90::mbar_expect_tx(&full[s], L::STAGE);
+        unsigned char* kt = smem + L::RING + s * L::STAGE;
+        for (int nb = 0; nb < NB; ++nb)
           sm90::tma_load_4d(kt + nb * BN * 128, &mk, nb * 64, h, i * BN, b, &full[s]);
-          sm90::tma_load_4d(kt + L::TILE + nb * BN * 128, &mv, nb * 64, h, i * BN, b, &full[s]);
-        }
+        for (int nb = 0; nb < NV; ++nb)
+          sm90::tma_load_4d(kt + L::TILE + nb * BN * 128, &mv, col0 + nb * 64, h, i * BN, b,
+                            &full[s]);
       }
     }
     return;
@@ -389,9 +409,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   // columns 8 c + c0 and 8 c + c0 + 1 of each 8-column chunk c
   const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
   const uint32_t q_addr = sm90::smem_addr(smem + L::Q);
-  float acc[NB][32];
+  float acc[NV][32];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NV; ++nb)
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[nb][x] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};  // l_r: this thread's part
@@ -400,7 +420,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   for (int i = 0; i < ntiles; ++i) {
     const int s = i % STAGES;
     sm90::mbar_wait(&full[s], (i / STAGES) & 1);
-    const uint32_t k_addr = sm90::smem_addr(smem + L::RING + 2 * s * L::TILE);
+    const uint32_t k_addr = sm90::smem_addr(smem + L::RING + s * L::STAGE);
     const uint32_t v_addr = k_addr + L::TILE;
 
     float sc[32];
@@ -437,7 +457,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
         lo[kk][w] = sm90::pack_bf16(a - __low2float(h2), c - __high2float(h2));
       }
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NV; ++nb)
 #pragma unroll
       for (int x = 0; x < 32; ++x) acc[nb][x] *= alpha[(x >> 1) & 1];
 
@@ -445,7 +465,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
+      for (int nb = 0; nb < NV; ++nb) {
         const uint64_t dv = sm90::desc_mnmajor(v_addr + nb * BN * 128 + kk * 2048);
         sm90::wgmma_rs_n64<1>(acc[nb], hi[kk], dv);
         sm90::wgmma_rs_n64<1>(acc[nb], lo[kk], dv);
@@ -453,7 +473,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) sm90::fence_operands(acc[nb]);
+    for (int nb = 0; nb < NV; ++nb) sm90::fence_operands(acc[nb]);
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[s]);  // stage s may be refilled
   }
@@ -464,15 +484,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
     const int qi = q0 + r0 + 8 * r;
     if (qi >= Tq) continue;
-    if (m_out && lane % 4 == 0) {
+    if (m_out && lane % 4 == 0 && blockIdx.z == 0) {  // both halves hold the same m, l
       const long long idx = (static_cast<long long>(b) * H + h) * Tq + qi;
       m_out[idx] = m_r[r];
       l_out[idx] = l_r[r];
     }
     const float inv = 1.f / l_r[r];
-    __nv_bfloat16* row = o + b * so.b + qi * so.t + h * so.h;
+    __nv_bfloat16* row = o + b * so.b + qi * so.t + h * so.h + col0;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NV; ++nb)
 #pragma unroll
       for (int c = 0; c < 8; ++c)
         *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) =
@@ -493,7 +513,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
   constexpr int smem = Layout<DH>::BYTES;
   e = sm90::allow_smem<flash_fwd_tc_kernel<DH>>(smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (Tq + BM - 1) / BM);
+  const dim3 grid(B * H, (Tq + BM - 1) / BM, DH / Layout<DH>::DV);
   flash_fwd_tc_kernel<DH><<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, k_lens, static_cast<__nv_bfloat16*>(o), m_out, l_out, Tq, Tk, H, so, causal, scale);
   return cudaGetLastError();
@@ -505,9 +525,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
 // q (B, Tq, H, Dh), k and v (B, Tk, H, Dh), o (B, Tq, H, Dh): element strides
 // over (b, t, h), unit stride over Dh.  k_lens is (B,) int32 or null (all
 // keys valid).  is_bf16 selects __nv_bfloat16 over float for all four: 1
-// takes the tensor-core path at Dh 64 and 128 (bf16 tensors with 16-byte
-// aligned bases and strides) and the SIMT path at Dh 256; 2 takes the SIMT
-// path at every head dim, to compare the two.  m_out and l_out are (B, H,
+// takes the tensor-core path at every head dim (bf16 tensors with 16-byte
+// aligned bases and strides); 2 takes the SIMT path, to compare the two.  m_out and l_out are (B, H,
 // Tq) fp32 for the row max and sum, or both null.
 extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                  const int* k_lens, void* o, float* m_out, float* l_out,
@@ -526,6 +545,9 @@ extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
                        scale, st);
   else if (is_bf16 == 1 && Dh == 128)
     e = tc::launch<128>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,
+                        scale, st);
+  else if (is_bf16 == 1 && Dh == 256)
+    e = tc::launch<256>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,
                         scale, st);
   else if (is_bf16)
     e = dispatch_dh<__nv_bfloat16>(Dh, q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk,

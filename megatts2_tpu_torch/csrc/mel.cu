@@ -9,39 +9,53 @@
 // What bounds it on the card: latency and memory, not arithmetic.  The TPU
 // kernel takes the DFT as two dense 1024 x 513 matmuls on the MXU (~2.1
 // MFLOP a frame).  Here a frame costs ~30 KFLOP: a 1024-point real FFT
-// (one 512-point complex FFT plus a split pass) and a sparse filterbank
-// (1001 nonzeros of 41040).  What is left is gathering 4 KB of signal per
-// frame and the block's __syncthreads chain.
+// (one 512-point complex FFT plus a split pass) and the filterbank's 1001
+// nonzeros.  Over the signal's 4 bytes a sample that is ~30 FLOP a byte,
+// under the card's fp32 ridge, so the floor is the signal read; what a
+// straightforward kernel loses is latency: dependent shared-memory stages,
+// scattered loads, and blocks too few to fill 132 SMs at a prompt's ~250
+// frames.
 //
 // What the design does about it:
-//  * One block per (tile of FRAMES frames, batch row).  The block gathers its
-//    frames straight from the signal, doing the reflect padding by index
-//    arithmetic, so no framed copy of the signal is written to device memory
-//    (the TPU version frames outside the kernel).  Even and odd samples of
-//    a windowed frame form one complex sequence, stored in bit-reversed order.
-//  * The 512-point complex FFT runs in shared memory as nine in-place
-//    radix-2 stages; a thread does one butterfly position for all FRAMES
-//    frames, so each twiddle it reads serves FRAMES butterflies.
-//  * Twiddles come from a table made with sincospif on t / 512, so every
-//    argument is reduced exactly, in integers.
+//  * A block takes FRAMES = 2 frames of one batch row, 64 threads a frame:
+//    a ~4 s prompt's 251 frames make 126 blocks, the batch's 8 x 512 make
+//    2048.  The block loads its frames' signal span (HOP samples a frame
+//    plus 768) once into shared memory with 16-byte loads; reflect
+//    indexing (and scalar loads) only at the signal's ends, no framed copy
+//    in device memory.
+//  * The 512-point complex FFT (even samples + i odd samples, windowed as
+//    they are read) runs in registers, 8 points a thread, as three radix-8
+//    passes with two exchanges through shared memory whose strides avoid
+//    bank conflicts.  The index plan is stated once in Python
+//    (ops/mel.py::fft_plan) and mirrored here; the twiddles come from the
+//    table built there in float64 (no sincos in the kernel).
+//  * The split to 513 bins and |X| read Z from shared memory; the
+//    filterbank walks each mel's nonzeros only: thread p sums mel p and
+//    mel 79 - p (16-42 weights, where single mels run 4-37), reading a
+//    weight table laid out so a warp's reads at each step are consecutive.
 //  * fp32 throughout, no tensor cores: log(clamp) amplifies error near 1e-5,
 //    and TF32 or bf16 would lose the digits the tolerance needs.
-//  * The magnitudes overwrite the FFT buffer; the mel projection walks only
-//    each filter's nonzero bin range [lo, hi), passed in by the wrapper.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int NFFT = 1024;
 constexpr int HOP = 256;
-constexpr int NC = NFFT / 2;         // complex FFT length
-constexpr int NFREQ = NFFT / 2 + 1;  // 513
-constexpr int FRAMES = 8;            // frames per block
-constexpr int THREADS = 256;         // NC / 2 butterflies per stage
+constexpr int NC = NFFT / 2;                      // complex FFT length
+constexpr int TPF = 64;                           // threads a frame, 8 points each
+constexpr int FRAMES = 2;                         // frames a block
+constexpr int THREADS = TPF * FRAMES;
+constexpr int SPAN = (FRAMES - 1) * HOP + NFFT;   // signal samples a block reads
+constexpr int ROW = 72;                           // exchange stride between first digits
+constexpr int XA = 640;                           // exchange A a frame: pass 1, then Z
+constexpr int XB = 8 * ROW;                       // exchange B a frame: pass 2, then |X|
+constexpr int TW1 = 0, TW2 = 8 * TPF, TWS = TW2 + 64;  // parts of the twiddle table
 constexpr float LOG_CLIP = 1e-5f;
+constexpr float SQRT_HALF = 0.70710678118654752f;
 
-static_assert(THREADS * 2 == NC, "one butterfly per thread per frame and stage");
-static_assert(FRAMES * NFREQ <= FRAMES * NC * 2, "magnitudes fit the FFT buffer");
+static_assert(SPAN % 4 == 0, "the span loads in float4");
+static_assert(XB * 2 >= NC + 1, "the magnitudes fit exchange B");
 
 // Index into the center=True reflect-padded signal (edge sample not
 // repeated, as jnp.pad / torch reflect).  The wrapper guarantees n > NFFT/2.
@@ -51,112 +65,151 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i;
 }
 
+// Slot of Z[k] in exchange A after pass 3 (ops/mel.py::zpos).
+__device__ __forceinline__ int zpos(int k) { return k + 2 * (k >> 3); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
+__device__ __forceinline__ float2 mul_negi(float2 a) { return make_float2(a.y, -a.x); }  // a * (-i)
+
+// In place: a[k] <- sum_n a[n] exp(-2 pi i n k / 8).  Radix-2 decimation in
+// frequency, written out: a 4-point DFT of u = a[n] + a[n+4] gives the even
+// outputs, one of v = (a[n] - a[n+4]) W_8^n the odd ones.
+__device__ __forceinline__ void dft8(float2 (&a)[8]) {
+  const float2 u0 = cadd(a[0], a[4]), u1 = cadd(a[1], a[5]), u2 = cadd(a[2], a[6]),
+               u3 = cadd(a[3], a[7]);
+  float2 v0 = csub(a[0], a[4]), v1 = csub(a[1], a[5]), v2 = csub(a[2], a[6]), v3 = csub(a[3], a[7]);
+  v1 = make_float2(SQRT_HALF * (v1.x + v1.y), SQRT_HALF * (v1.y - v1.x));   // W_8 = (1 - i)/sqrt 2
+  v2 = mul_negi(v2);                                                       // W_8^2 = -i
+  v3 = make_float2(SQRT_HALF * (v3.y - v3.x), -SQRT_HALF * (v3.x + v3.y));  // W_8^3 = -(1 + i)/sqrt 2
+  const float2 su = cadd(u0, u2), tu = cadd(u1, u3), du = csub(u0, u2), eu = mul_negi(csub(u1, u3));
+  const float2 sv = cadd(v0, v2), tv = cadd(v1, v3), dv = csub(v0, v2), ev = mul_negi(csub(v1, v3));
+  a[0] = cadd(su, tu);
+  a[4] = csub(su, tu);
+  a[2] = cadd(du, eu);
+  a[6] = csub(du, eu);
+  a[1] = cadd(sv, tv);
+  a[5] = csub(sv, tv);
+  a[3] = cadd(dv, ev);
+  a[7] = csub(dv, ev);
+}
 
 __global__ void __launch_bounds__(THREADS)
-mel_kernel(const float* __restrict__ sig, const float* __restrict__ window,
-           const float* __restrict__ fb, const int* __restrict__ fb_range,
-           float* __restrict__ out, int n, int T, int n_mels) {
-  __shared__ float2 z[FRAMES * NC];  // [f][bit-reversed n], later mags [f][k]
-  __shared__ float2 tw[NC];          // exp(-2 pi i t / NFFT), t < NFFT / 2
+mel_kernel(const float* __restrict__ sig, const float2* __restrict__ window2,
+           const float2* __restrict__ tw, const int4* __restrict__ tasks,
+           const float* __restrict__ weights, float* __restrict__ out, int n, int T,
+           int n_tasks) {
+  __shared__ __align__(16) float span[SPAN];
+  __shared__ float2 xa[FRAMES][XA];
+  __shared__ float2 xb[FRAMES][XB];
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * FRAMES;
-  const int tid = threadIdx.x;
+  const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
   const float* s = sig + static_cast<size_t>(b) * n;
 
-  for (int t = tid; t < NC; t += THREADS) {
-    float sv, cv;
-    sincospif(static_cast<float>(t) / NC, &sv, &cv);  // angle 2*pi*t/NFFT
-    tw[t] = make_float2(cv, -sv);
-  }
-  for (int idx = tid; idx < FRAMES * NC; idx += THREADS) {
-    const int f = idx / NC;
-    const int j = idx % NC;  // z[j] = x[2j] + i x[2j+1]
-    const int t = t0 + f;
-    float2 v = make_float2(0.f, 0.f);
-    if (t < T) {
-      const int m = 2 * j;
-      const int base = t * HOP + m - NFFT / 2;
-      v.x = s[reflect(base, n)] * window[m];
-      v.y = s[reflect(base + 1, n)] * window[m + 1];
+  // the span: frame t0 + f reads span[f HOP, f HOP + NFFT), signal samples
+  // from (t0 + f) HOP - NC; past the last frame the span stays 0
+  const int len = (min(FRAMES, T - t0) - 1) * HOP + NFFT;
+  const int s0 = t0 * HOP - NC;  // a multiple of 4, like every i below
+  const bool vec = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+  for (int i = 4 * threadIdx.x; i < SPAN; i += 4 * THREADS) {
+    const int j = s0 + i;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < len) {
+      if (vec && j >= 0 && j + 3 < n)
+        v = *reinterpret_cast<const float4*>(s + j);
+      else
+        v = make_float4(s[reflect(j, n)], s[reflect(j + 1, n)], s[reflect(j + 2, n)],
+                        s[reflect(j + 3, n)]);
     }
-    z[f * NC + (__brev(j) >> (32 - 9))] = v;  // 9-bit reversal: NC = 512
-  }
-
-  // nine in-place decimation-in-time stages; m is the half-size
-  for (int m = 1; m < NC; m <<= 1) {
-    __syncthreads();
-    const int p = tid & (m - 1);
-    const int i0 = ((tid - p) << 1) + p;
-    const float2 w = tw[p * (NC / m)];  // exp(-2 pi i p / (2m))
-#pragma unroll
-    for (int f = 0; f < FRAMES; ++f) {
-      const float2 a = z[f * NC + i0];
-      const float2 bw = cmul(z[f * NC + i0 + m], w);
-      z[f * NC + i0] = make_float2(a.x + bw.x, a.y + bw.y);
-      z[f * NC + i0 + m] = make_float2(a.x - bw.x, a.y - bw.y);
-    }
+    *reinterpret_cast<float4*>(span + i) = v;
   }
   __syncthreads();
 
-  // split: X[k] = E[k] + W^k O[k], with E, O the DFTs of the even and odd
+  // pass 1: z[t + 64 r] = x[m] + i x[m + 1], m = 2 (t + 64 r), windowed
+  float2 a[8];
+  const float* fs = span + f * HOP;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float2 x = *reinterpret_cast<const float2*>(fs + 2 * (t + 64 * r));
+    const float2 w = window2[t + 64 * r];
+    a[r] = make_float2(x.x * w.x, x.y * w.y);
+  }
+  dft8(a);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) xa[f][r * ROW + t] = cmul(a[r], tw[TW1 + r * TPF + t]);
+  __syncthreads();
+
+  // pass 2: thread (k1, m2) = (t >> 3, t & 7)
+  {
+    const int k1 = t >> 3, m2 = t & 7;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) a[r] = xa[f][k1 * ROW + m2 + 8 * r];
+    dft8(a);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) xb[f][k1 * ROW + 9 * r + m2] = cmul(a[r], tw[TW2 + r * 8 + m2]);
+  }
+  __syncthreads();
+
+  // pass 3: thread (k1, j1) = (t >> 3, t & 7) ends with Z[k1 + 8 j1 + 64 r]
+  {
+    const int k1 = t >> 3, j1 = t & 7;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) a[r] = xb[f][k1 * ROW + 9 * j1 + r];
+    dft8(a);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) xa[f][zpos(k1 + 8 * j1 + 64 * r)] = a[r];
+  }
+  __syncthreads();
+
+  // split: X[k] = E[k] + W^k O[k], with E, O the spectra of the even and odd
   // samples recovered from Z[k] and conj(Z[NC - k]); X[NC] = Re Z[0] - Im Z[0]
-  float mag[2][FRAMES];
-  float nyq = 0.f;
+  float* mags = reinterpret_cast<float*>(xb[f]);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int k = tid + h * THREADS;
-#pragma unroll
-    for (int f = 0; f < FRAMES; ++f) {
-      const float2 zk = z[f * NC + k];
-      const float2 zm = z[f * NC + ((NC - k) & (NC - 1))];
-      const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-      const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
-      const float2 wo = cmul(tw[k], o);
-      const float re = e.x + wo.x, im = e.y + wo.y;
-      mag[h][f] = sqrtf(re * re + im * im);
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int k = t + 64 * i;
+    const float2 zk = xa[f][zpos(k)], zm = xa[f][zpos((NC - k) & (NC - 1))];
+    const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+    const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+    const float2 wo = cmul(tw[TWS + k], o);
+    const float re = e.x + wo.x, im = e.y + wo.y;
+    mags[k] = sqrtf(re * re + im * im);
   }
-  if (tid < FRAMES) nyq = fabsf(z[tid * NC].x - z[tid * NC].y);
-  __syncthreads();  // every read of the spectrum is done
-
-  float* mags = reinterpret_cast<float*>(z);  // [f][NFREQ]
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int f = 0; f < FRAMES; ++f) mags[f * NFREQ + tid + h * THREADS] = mag[h][f];
-  }
-  if (tid < FRAMES) mags[tid * NFREQ + NC] = nyq;
+  if (t == 0) mags[NC] = fabsf(xa[f][0].x - xa[f][0].y);
   __syncthreads();
 
-  for (int o = tid; o < FRAMES * n_mels; o += THREADS) {
-    const int f = o / n_mels;
-    const int j = o % n_mels;
-    const int t = t0 + f;
-    if (t >= T) continue;
-    const float* mf = mags + f * NFREQ;
-    float acc = 0.f;
-    for (int k = fb_range[j]; k < fb_range[n_mels + j]; ++k) {
-      acc = fmaf(mf[k], fb[k * n_mels + j], acc);
-    }
-    out[(static_cast<size_t>(b) * T + t) * n_mels + j] = logf(fmaxf(acc, LOG_CLIP));
+  // filterbank: task t sums mel t and mel 2 n_tasks - 1 - t
+  const int frame = t0 + f;
+  if (t < n_tasks && frame < T) {
+    const int4 task = tasks[t];  // (first bin, count) of each of the two mels
+    float acc_a = 0.f, acc_b = 0.f;
+    for (int i = 0; i < task.y; ++i) acc_a = fmaf(mags[task.x + i], weights[i * n_tasks + t], acc_a);
+    for (int i = 0; i < task.w; ++i)
+      acc_b = fmaf(mags[task.z + i], weights[(task.y + i) * n_tasks + t], acc_b);
+    float* o = out + (static_cast<size_t>(b) * T + frame) * (2 * n_tasks);
+    o[t] = logf(fmaxf(acc_a, LOG_CLIP));
+    o[2 * n_tasks - 1 - t] = logf(fmaxf(acc_b, LOG_CLIP));
   }
 }
 
 }  // namespace
 
-// sig (B, n) fp32, window (1024,) fp32, fb (513, n_mels) fp32, fb_range
-// (2, n_mels) int32 holding each filter's nonzero bins [lo, hi), out
-// (B, T, n_mels) fp32 with T = 1 + n / 256; all contiguous on the device of
-// `stream`.
-extern "C" int mt_mel_forward(const float* sig, const float* window, const float* fb,
-                              const int* fb_range, float* out, int B, int n, int T,
-                              int n_mels, void* stream) {
+// sig (B, n) fp32, window (1024,) fp32, tw (1088,) complex fp32 (the table
+// of ops/mel.py::kernel_twiddles), tasks (n_mels / 2,) int4 and weights
+// (depth, n_mels / 2) fp32 (ops/mel.py::filterbank_tasks), out (B, T,
+// n_mels) fp32 with T = 1 + n / 256; all contiguous on the device of
+// `stream`; n > 512, n_mels even and at most 128.
+extern "C" int mt_mel_forward(const float* sig, const float* window, const float* tw,
+                              const int* tasks, const float* weights, float* out, int B, int n,
+                              int T, int n_mels, void* stream) {
+  if (n <= NC || n_mels % 2 || n_mels > 2 * TPF) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + FRAMES - 1) / FRAMES, B);
   mel_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      sig, window, fb, fb_range, out, n, T, n_mels);
+      sig, reinterpret_cast<const float2*>(window), reinterpret_cast<const float2*>(tw),
+      reinterpret_cast<const int4*>(tasks), weights, out, n, T, n_mels / 2);
   return static_cast<int>(cudaGetLastError());
 }

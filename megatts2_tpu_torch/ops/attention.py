@@ -15,12 +15,14 @@ the output is in q's dtype.
   with its roundings of P and ds to q's dtype.
 * :func:`flash_attention_cuda` / :func:`flash_attention_bwd_cuda` — kernel
   B (``csrc/flash_attn_fwd.cu``) and kernel C (``csrc/flash_attn_bwd.cu``).
-  bf16 at head dims 64 and 128 takes their tensor-core path (``wgmma`` and
-  TMA loads, :func:`uses_tensor_cores`); fp32 and head dim 256 their SIMT
-  path.  The tensor-core path's forward splits P into bf16 hi + lo parts
-  for P V (the row sum stays fp32).  TMA reads a tensor only from a 16-byte-aligned base with
-  16-byte strides (:func:`tma_aligned`); a view that breaks this is copied
-  first, counted in each wrapper's ``layout_copies``.
+  bf16 takes their tensor-core path (``wgmma`` and TMA loads): the
+  forward at head dims 64, 128 and 256 (:func:`fwd_uses_tensor_cores`),
+  the backward at 64 and 128 (:func:`bwd_uses_tensor_cores`); fp32, and
+  the backward at 256, their SIMT path.  The tensor-core path's forward
+  splits P into bf16 hi + lo parts for P V (the row sum stays fp32).  TMA
+  reads a tensor only from a 16-byte-aligned base with 16-byte strides
+  (:func:`tma_aligned`); a view that breaks this is copied first, counted
+  in each wrapper's ``layout_copies``.
 * :class:`FlashAttentionFunction` — the ``custom_vjp``: forward by kernel B
   (plain on the CPU) saving q, k, v, k_lens, m and l; backward by kernel C
   (plain on the CPU).
@@ -37,13 +39,24 @@ import torch
 from .masks import NEG_INF
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
-TC_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core path
+# bf16 head dims of the tensor-core path: the forward (kernel B) has it at
+# all three; the backward (kernel C) at 64 and 128, since no ported path
+# trains at head dim 256 (the MRTE trains under MegaG's GAN trainer, not
+# ported yet)
+TC_FWD_HEAD_DIMS = (64, 128, 256)
+TC_BWD_HEAD_DIMS = (64, 128)
 
 
-def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether kernels B and C take their tensor-core path (``wgmma``, TMA)
-    for this dtype and head dim; otherwise their SIMT path runs."""
-    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+def fwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether kernel B takes its tensor-core path (``wgmma``, TMA) for this
+    dtype and head dim; otherwise its SIMT path runs."""
+    return dtype == torch.bfloat16 and head_dim in TC_FWD_HEAD_DIMS
+
+
+def bwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether kernel C takes its tensor-core path for this dtype and head
+    dim; otherwise its SIMT path runs."""
+    return dtype == torch.bfloat16 and head_dim in TC_BWD_HEAD_DIMS
 
 
 def tma_aligned(data_ptr: int, element_size: int, shape, strides) -> bool:
@@ -52,7 +65,10 @@ def tma_aligned(data_ptr: int, element_size: int, shape, strides) -> bool:
     (strides of extent-1 dims are never used and do not count)."""
     if strides[-1] != 1 or data_ptr % 16:
         return False
-    return all(n == 1 or (st * element_size) % 16 == 0 for n, st in zip(shape[:-1], strides[:-1]))
+    for n, st in zip(shape[:-1], strides[:-1]):  # a loop: all() over a generator costs ~3x on the host
+        if n != 1 and (st * element_size) % 16:
+            return False
+    return True
 
 
 def _tma_ready(t: torch.Tensor, wrapper) -> torch.Tensor:
@@ -184,7 +200,7 @@ def flash_attention_cuda(
     from ..csrc.build import check, load_library
 
     B, Tq, H, Dh = q.shape
-    tc = uses_tensor_cores(q.dtype, Dh) and not simt
+    tc = fwd_uses_tensor_cores(q.dtype, Dh) and not simt
     if tc:
         q, k, v = (_tma_ready(t, flash_attention_cuda) for t in (q, k, v))
     lib = load_library()
@@ -193,7 +209,7 @@ def flash_attention_cuda(
     if return_stats:
         m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]  # stride(i) costs ~4x stride()
     with torch.cuda.device(q.device):
         err = lib.mt_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_lens), out.data_ptr(),
@@ -237,7 +253,7 @@ def flash_attention_bwd_cuda(
             raise ValueError(f"{name} must be a contiguous (B, H, Tq) float32 tensor on q's device")
     if g.stride(-1) != 1:
         g = g.contiguous()
-    tc = uses_tensor_cores(q.dtype, Dh) and not simt
+    tc = bwd_uses_tensor_cores(q.dtype, Dh) and not simt
     if tc:
         q, k, v, g = (_tma_ready(t, flash_attention_bwd_cuda) for t in (q, k, v, g))
     from ..csrc.build import check, load_library
@@ -247,9 +263,7 @@ def flash_attention_bwd_cuda(
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dsum = torch.empty_like(m)  # D = rowsum(dp * P), written by pass 1
-    strides = (ctypes.c_longlong * 21)(
-        *[t.stride(i) for t in (q, k, v, g, dq, dk, dv) for i in range(3)]
-    )
+    strides = (ctypes.c_longlong * 21)(*[st for t in (q, k, v, g, dq, dk, dv) for st in t.stride()[:3]])
     with torch.cuda.device(q.device):
         err = lib.mt_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(k_lens),

@@ -10,9 +10,9 @@ order; bf16 output rounding); the forward's row statistics atol 1e-4 (row
 max) and rtol 1e-5 (row sum), fp32 sums in another order; the backward
 1e-4 (fp32) and 2e-2 (bf16) of each gradient's largest magnitude, since P
 and ds are rounded to bf16 before their products and a rounding that flips
-moves a term by one bf16 ulp; log-mel atol 1e-3, because a direct DFT and an
-FFT sum 1024 terms in different orders and log(clamp(., 1e-5)) magnifies
-that near the clamp; the copy pump (kernel D) exactly, since both its
+moves a term by one bf16 ulp; log-mel atol 1e-3, because the kernel's FFT
+and ``torch.fft`` sum 1024 terms in different orders and log(clamp(.,
+1e-5)) magnifies that near the clamp; the copy pump (kernel D) exactly, since both its
 outputs are integer sums."""
 import numpy as np
 import pytest
@@ -43,9 +43,11 @@ def _lens(B, Tk):
 
 # (B, Tq, H, Dh[, Tk]): the tensor-core path's edges at Dh 64 (Tq of 1, 32,
 # 300 and 1000 inside 64-row tiles; one query row against 70 keys), Dh 128,
-# and the SIMT path's Dh 256
+# and Dh 256, where two blocks split the output columns: the MRTE's (8, 64,
+# 2, 256) and (1, 3, 2, 256), several key tiles, one row against 70 keys
 FLASH_SHAPES = [(8, 64, 2, 256), (4, 1, 2, 64, 70), (4, 32, 2, 64), (4, 300, 2, 64),
-                (2, 1000, 16, 64), (3, 77, 4, 128)]
+                (2, 1000, 16, 64), (3, 77, 4, 128), (1, 3, 2, 256), (2, 300, 4, 256),
+                (4, 1, 2, 256, 70)]
 
 
 def _qkv(shape, n, g, dev, dtype):
@@ -109,10 +111,11 @@ def test_flash_kernels_copy_views_that_tma_cannot_read(cuda):
         _close_to_max(a, b, 2e-2, name)
 
 
-@pytest.mark.parametrize("dtype,head_dim,tc", [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
-                                               (torch.bfloat16, 256, False), (torch.float32, 64, False),
-                                               (torch.float32, 128, False)])
-def test_tensor_core_counters_follow_the_dispatch(cuda, dtype, head_dim, tc):
+@pytest.mark.parametrize("dtype,head_dim,tc,bwd_tc", [
+    (torch.bfloat16, 64, True, True), (torch.bfloat16, 128, True, True),
+    (torch.bfloat16, 256, True, False), (torch.float32, 64, False, False),
+    (torch.float32, 128, False, False)])
+def test_tensor_core_counters_follow_the_dispatch(cuda, dtype, head_dim, tc, bwd_tc):
     g = torch.Generator().manual_seed(8)
     q, k, v, go = (torch.randn(2, 40, 2, head_dim, generator=g).to(cuda, dtype) for _ in range(4))
     f0, b0 = tatt.flash_attention_cuda.tc_launches, tatt.flash_attention_bwd_cuda.tc_launches
@@ -120,7 +123,7 @@ def test_tensor_core_counters_follow_the_dispatch(cuda, dtype, head_dim, tc):
     tatt.flash_attention_bwd_cuda(q, k, v, None, True, go, m, l)
     torch.cuda.synchronize()
     assert tatt.flash_attention_cuda.tc_launches == f0 + tc
-    assert tatt.flash_attention_bwd_cuda.tc_launches == b0 + tc
+    assert tatt.flash_attention_bwd_cuda.tc_launches == b0 + bwd_tc
     # the SIMT path on request gives the same function
     simt = tatt.flash_attention_cuda(q, k, v, None, True, simt=True)
     assert tatt.flash_attention_cuda.tc_launches == f0 + tc
@@ -216,6 +219,32 @@ def test_autograd_on_the_card_matches_the_cpu(cuda):
         _close_to_max(a, b, 1e-4, "autograd")
 
 
+def test_autograd_at_head_dim_256_bf16_matches_the_cpu(cuda):
+    """bf16 at head dim 256: the tensor-core forward with the SIMT backward
+    (each launched once) against the plain versions on the CPU; 2e-2 on the
+    output and of each gradient's largest magnitude (bf16 roundings)."""
+    g = torch.Generator().manual_seed(9)
+    x = [torch.randn(3, 70, 2, 256, generator=g).bfloat16() for _ in range(4)]
+    lens = torch.tensor([70, 0, 9], dtype=torch.int32)
+    out, grads = {}, {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).detach().requires_grad_() for t in x[:3]]
+        f0, b0 = tatt.flash_attention_cuda.tc_launches, tatt.flash_attention_bwd_cuda.launches
+        bt0 = tatt.flash_attention_bwd_cuda.tc_launches
+        y = tatt.flash_attention(*leaves, lens.to(dev), False)
+        y.backward(x[3].to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tatt.flash_attention_cuda.tc_launches == f0 + 1
+            assert tatt.flash_attention_bwd_cuda.launches == b0 + 1
+            assert tatt.flash_attention_bwd_cuda.tc_launches == bt0
+        out[str(dev)] = y.detach().float().cpu()
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=2e-2)
+    for name, a, b in zip(("dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+        _close_to_max(a, b, 2e-2, f"autograd bf16 Dh 256 {name}")
+
+
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(1, 8, 2, 96, device=cuda)  # the ADM's head dim at tc_emb_dim=512
     st = torch.ones(1, 2, 8, device=cuda)
@@ -228,7 +257,7 @@ def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
         tatt.flash_attention_bwd_cuda(y, y, y, None, False, y.bfloat16(), st, st)
 
 
-@pytest.mark.parametrize("shape", [(1, 64001), (8, 131000), (2, 777), (5000,)])
+@pytest.mark.parametrize("shape", [(1, 64001), (8, 131000), (2, 777), (5000,), (1, 513), (3, 131000)])
 def test_mel_kernel_matches_plain(cuda, shape):
     g = torch.Generator().manual_seed(2)
     y = (torch.randn(shape, generator=g) * 0.1).to(cuda)

@@ -56,6 +56,125 @@ def test_mel_helpers_equal_jax_copies():
     assert tmel.num_frames(4100) == jmel.num_frames(4100)
 
 
+# --- kernel A's tables and index plan ---------------------------------------
+
+
+def test_mel_kernel_filterbank_tables_rebuild_the_filterbank():
+    """The compact tables hold every nonzero weight where the dense
+    filterbank has it, bit for bit, and that filterbank is JAX's."""
+    from megatts2_tpu.ops import mel as jmel
+
+    fb = tmel.mel_filterbank()
+    tasks, weights = tmel.filterbank_tasks(fb)
+    n_mels = fb.shape[1]
+    rebuilt = np.zeros_like(fb)
+    for p, (la, ca, lb, cb) in enumerate(tasks):
+        rebuilt[la : la + ca, p] = weights[:ca, p]
+        rebuilt[lb : lb + cb, n_mels - 1 - p] = weights[ca : ca + cb, p]
+    np.testing.assert_array_equal(rebuilt, fb)
+    np.testing.assert_array_equal(rebuilt, jmel.mel_filterbank())
+    assert int((weights != 0).sum()) == int((fb != 0).sum()) == 1001
+    assert tasks.shape == (40, 4) and weights.shape[1] == 40
+
+
+def test_mel_kernel_twiddles():
+    w = tmel.twiddles_1024()
+    t = np.arange(1024)
+    np.testing.assert_allclose(w, np.exp(-2j * np.pi * t / 1024), rtol=0, atol=1e-7)
+    plan, table = tmel.fft_plan(), tmel.kernel_twiddles()
+    assert table.shape == (512 + 64 + 512,)
+    tt, r = np.meshgrid(np.arange(64), np.arange(8))  # [r][t]
+    np.testing.assert_allclose(table[:512], np.exp(-2j * np.pi * (tt * r).ravel() / 512), atol=1e-7)
+    m2, r = np.meshgrid(np.arange(8), np.arange(8))  # [r][m2]
+    np.testing.assert_allclose(table[512:576], np.exp(-2j * np.pi * (m2 * r).ravel() / 64), atol=1e-7)
+    np.testing.assert_array_equal(table[576:], w[:512])
+    assert plan["tws"].tolist() == list(range(512))
+
+
+SQRT_HALF = np.float32(0.70710678118654752)
+
+
+def _dft8(a):
+    """csrc/mel.cu's dft8 over the last axis, operation for operation, in
+    complex64 (a * -i written as (y, -x))."""
+    def negi(x):
+        return (x.imag - 1j * x.real).astype(np.complex64)
+
+    def w1(x):
+        return (SQRT_HALF * (x.real + x.imag) + 1j * SQRT_HALF * (x.imag - x.real)).astype(np.complex64)
+
+    def w3(x):
+        return (SQRT_HALF * (x.imag - x.real) - 1j * SQRT_HALF * (x.real + x.imag)).astype(np.complex64)
+
+    a = a.astype(np.complex64)
+    u = [a[..., n] + a[..., n + 4] for n in range(4)]
+    v = [a[..., n] - a[..., n + 4] for n in range(4)]
+    v[1], v[2], v[3] = w1(v[1]), negi(v[2]), w3(v[3])
+    out = np.empty_like(a)
+    for (x0, x1, x2, x3), (e0, e1) in ((u, (0, 4)), (v, (1, 5))):
+        s, t, d, e = x0 + x2, x1 + x3, x0 - x2, negi(x1 - x3)
+        out[..., e0], out[..., e1] = s + t, s - t
+        out[..., e0 + 2], out[..., e1 + 2] = d + e, d - e
+    return out
+
+
+def _run_fft_plan(z):
+    """The kernel's three passes over z (..., 512) complex64, as the plan's
+    index arrays say, with the kernel's twiddle table: returns Z (..., 512)
+    in natural order, read back from exchange A through zpos."""
+    plan = tmel.fft_plan()
+    tw = tmel.kernel_twiddles()
+    tw1, tw2 = tw[:512].reshape(8, 64).T, tw[512:576].reshape(8, 8).T  # [t][r], [m2][r]
+    lead = z.shape[:-1]
+    ex_a = np.zeros(lead + (tmel.FFT_ZSLOTS,), np.complex64)
+    ex_b = np.zeros(lead + (8 * tmel.FFT_ROW,), np.complex64)
+    a = _dft8(z[..., plan["load1"]]) * tw1
+    ex_a[..., plan["store1"]] = a
+    a = _dft8(ex_a[..., plan["load2"]]) * tw2[np.arange(64) & 7]
+    ex_b[..., plan["store2"]] = a
+    a = _dft8(ex_b[..., plan["load3"]])
+    ex_a[..., tmel.zpos(plan["out3"])] = a
+    return ex_a[..., tmel.zpos(np.arange(512))]
+
+
+def _split(Z):
+    """The kernel's split of Z (..., 512) into |X| (..., 513)."""
+    tw = tmel.kernel_twiddles()[576:]
+    k = np.arange(512)
+    zk, zm = Z, Z[..., (512 - k) & 511]
+    e = 0.5 * (zk.real + zm.real) + 0.5j * (zk.imag - zm.imag)
+    o = 0.5 * (zk.imag + zm.imag) - 0.5j * (zk.real - zm.real)
+    x = e + tw * o
+    nyq = np.abs(Z[..., :1].real - Z[..., :1].imag)
+    return np.concatenate([np.abs(x), nyq], -1).astype(np.float32)
+
+
+def test_mel_kernel_fft_plan_in_numpy():
+    """The plan the kernel mirrors, executed in numpy on seeded windowed
+    frames, gives np.fft.rfft's magnitudes within 1e-4 and, through the
+    compact filterbank and the log clamp, mel_spectrogram_plain within 1e-4."""
+    plan = tmel.fft_plan()
+    for name in ("store1", "store2"):  # every exchange slot written once
+        assert len(np.unique(plan[name])) == 512
+    assert sorted(plan["out3"].ravel()) == list(range(512))
+    assert len(np.unique(tmel.zpos(np.arange(512)))) == 512 and tmel.zpos(511) < tmel.FFT_ZSLOTS
+
+    y = (np.random.RandomState(8).randn(2, 5000) * 0.1).astype(np.float32)
+    frames = tmel.frame_signal(_t(y), 1024, 256).numpy() * tmel.padded_window(1024, 1024)
+    z = (frames[..., 0::2] + 1j * frames[..., 1::2]).astype(np.complex64)
+    mags = _split(_run_fft_plan(z))
+    np.testing.assert_allclose(mags, np.abs(np.fft.rfft(frames.astype(np.float64), axis=-1)),
+                               rtol=0, atol=1e-4)
+
+    tasks, weights = tmel.filterbank_tasks(tmel.mel_filterbank())
+    mel = np.zeros(mags.shape[:-1] + (80,), np.float32)
+    for p, (la, ca, lb, cb) in enumerate(tasks):
+        mel[..., p] = mags[..., la : la + ca] @ weights[:ca, p]
+        mel[..., 79 - p] = mags[..., lb : lb + cb] @ weights[ca : ca + cb, p]
+    got = np.log(np.maximum(mel, 1e-5))
+    np.testing.assert_allclose(got, tmel.mel_spectrogram_plain(_t(y)).numpy(), rtol=0, atol=1e-4)
+
+
 # --- kernel B's plain version -------------------------------------------
 
 
