@@ -26,7 +26,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    peak rate of their type) and one PyTorch library call that computes the
    same function; kernels A and B at the synthesis shapes also split into
    device us (``torch.profiler``) and the host's issue us a call
-   (``tools/kernel_times.py``); the attention kernels also beside their
+   (``tools/kernel_times.py``'s cases), with what kernel B's tensor-core
+   wrapper adds to the host's cost; the attention kernels also beside their
    SIMT path, with the achieved TFLOP/s, the backward's two passes from a
    ``torch.profiler`` trace, and each tensor-core kernel's HGMMA count
    (``cuobjdump -sass``) and spills (the build's ptxas log).
@@ -44,7 +45,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    counters are set to 0; after it, both must be > 0, and kernel B's
    tensor-core counter too (the MRTE; on the prompted run also the
    prefill).  Then warm wall
-   times of the batch and of each cascade stage.
+   times of the batch and of each cascade stage, and of the MRTE stage
+   with kernel B's forward on its tensor-core and SIMT routes in turns.
 6. bandwidth — ``megatts2_tpu_torch.tools.bw_ceiling`` at its full shapes:
    read_reduce, dots, kernel D at 16 and 64 passes and their fit, and the
    int8 PLM decode at B=8, T=64 against that ceiling.  Kernel D's counter
@@ -283,7 +285,7 @@ def ptxas_report() -> dict:
 def phase_kernels(dev: torch.device, card: str) -> dict:
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel, pump
-    from megatts2_tpu_torch.tools.kernel_times import split_times, trace_kernels
+    from megatts2_tpu_torch.tools import kernel_times
 
     gen = torch.Generator().manual_seed(SEED)
     err = {"flash": 0.0, "mel": 0.0}
@@ -312,23 +314,19 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         print(f"kernel mel_spectrogram {shape}: max_abs_err {e:.3g} (atol {ATOL_MEL})")
     torch.cuda.synchronize()
 
-    # timing at the slice's shapes: MRTE self-attention (8, 64, 2, 256) bf16
-    # with mixed lengths; the batched prompt front-end (8, 131000) fp32
-    q, k, v = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
-    lens = torch.randint(16, 65, (8,), generator=gen, dtype=torch.int32).to(dev)
+    # timing at the slice's shapes (tools/kernel_times.py's inputs): MRTE
+    # self-attention (8, 64, 2, 256) bf16 with mixed lengths; the batched
+    # prompt front-end (8, 131000) fp32
+    x = kernel_times.inputs(dev, SEED)
+    q, k, v, lens = x["mrte"]
+    y = x["mel"]
     t_att = in_turns(lambda: att.flash_attention_plain(q, k, v, lens),
                      lambda: att.flash_attention_cuda(q, k, v, lens))
-    y = (torch.randn(8, 131000, generator=gen) * 0.1).to(dev)
     t_mel = in_turns(lambda: mel.mel_spectrogram_plain(y), lambda: mel.mel_spectrogram_cuda(y))
     simt = {"flash_mrte": cuda_ms(lambda: att.flash_attention_cuda(q, k, v, lens, simt=True))}
-    y1 = (torch.randn(64001, generator=gen) * 0.1).to(dev)
     # where a call's time goes: event ms, the kernel's device us (torch.profiler)
     # and the host's issue us, each path and kernel
-    split = {"flash_mrte": split_times(lambda: att.flash_attention_cuda(q, k, v, lens), "flash"),
-             "flash_mrte_simt": split_times(lambda: att.flash_attention_cuda(q, k, v, lens, simt=True),
-                                            "flash"),
-             "mel": split_times(lambda: mel.mel_spectrogram_cuda(y), "mel"),
-             "mel_prompt": split_times(lambda: mel.mel_spectrogram_cuda(y1), "mel")}
+    split = kernel_times.time_cases(kernel_times.cases(x))
     window, fb = mel._tables(1024, 1024, 80, dev)
 
     def mel_library():  # torch.stft + filterbank matmul + log clamp: a composite of library calls
@@ -368,6 +366,12 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         print(f"time split {name}: event {sp['event_ms']:.4f} ms, device "
               f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler), host "
               f"issue {sp['host_us']:.2f} us a call: {side}{ref} [{card}]")
+    hs = {key: sp["host_us"] for key, sp in split.items()}
+    print(f"host split flash_attention (8,64,2,256) bf16, medians of interleaved rounds: tensor cores "
+          f"{hs['flash_mrte']:.2f} us a call, simt {hs['flash_mrte_simt']:.2f} "
+          f"({hs['flash_mrte'] - hs['flash_mrte_simt']:+.2f}: the tensor-core launcher's three "
+          f"tensor-map encodes and _launch_tma); the Python check of TMA's rule on q, k, v {hs['tma_check']:.2f} us, "
+          f"off the path (made only after the launcher refuses a view) [{card}]")
 
     # kernel B's row statistics and kernel C against the plain backward
     err["flash_bwd"] = 0.0
@@ -411,7 +415,8 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                  "flash_bwd": cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m,
                                                                            l, simt=True))})
     passes = {}
-    for name, t in trace_kernels(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True, g, m, l),
+    for name, t in kernel_times.trace_kernels(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, True,
+                                                                                   g, m, l),
                                  5).items():
         hit = re.search(r"(flash_\w+?_kernel)<(\d+)", name)
         if hit:
@@ -632,6 +637,52 @@ def _read_prompt(path: str) -> np.ndarray:
     return y / np.max(np.abs(y))
 
 
+def _mrte_routes(tts, text: str, mels: torch.Tensor, label: str, card: str, rounds: int = 8,
+                 reps: int = 4) -> None:
+    """The MRTE stage (``g.mrte.tc_latent``) at the batch's shapes with
+    kernel B's forward on its tensor-core path (the default) and forced onto
+    its SIMT path: wall ms a call, the host clock around ``reps`` calls that
+    end in a synchronize, the routes taking turns (SIMT first in even
+    rounds) for ``rounds`` rounds; the median and range of each route."""
+    from megatts2_tpu_torch.ops import attention as att
+
+    ids = torch.from_numpy(tts.phone_ids(text))
+    B, n = mels.shape[0], len(ids)
+    phone = torch.zeros(B, -(-n // 16) * 16, dtype=torch.long)
+    phone[:, :n] = ids
+    phone, lens = phone.to(tts.device), torch.full((B,), n, device=tts.device)
+    default = att.fwd_uses_tensor_cores
+
+    def wall(tensor_cores: bool) -> tuple[float, int]:
+        att.fwd_uses_tensor_cores = default if tensor_cores else (lambda dtype, head_dim: False)
+        try:
+            with torch.inference_mode():
+                tts.g.mrte.tc_latent(phone, mels, lens)
+                torch.cuda.synchronize()
+                tc0 = att.flash_attention_cuda.tc_launches
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    tts.g.mrte.tc_latent(phone, mels, lens)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps * 1e3, att.flash_attention_cuda.tc_launches - tc0
+        finally:
+            att.fwd_uses_tensor_cores = default
+
+    walls: dict = {True: [], False: []}
+    calls = 0  # kernel B calls a tc_latent
+    for r in range(rounds):
+        for tensor_cores in ((False, True) if r % 2 == 0 else (True, False)):
+            ms, n_tc = wall(tensor_cores)
+            check((n_tc > 0) == tensor_cores, f"{label}: MRTE route tensor_cores={tensor_cores} "
+                                              f"made {n_tc} tensor-core launches")
+            walls[tensor_cores].append(ms)
+            calls = n_tc // reps if tensor_cores else calls
+    tc, simt = sorted(walls[True]), sorted(walls[False])
+    print(f"slice {label}: MRTE stage (tc_latent, {calls} kernel B calls) wall ms a call, median "
+          f"[min, max] of {rounds} rounds of {reps}: tensor cores {np.median(tc):.3f} [{tc[0]:.3f}, "
+          f"{tc[-1]:.3f}], simt {np.median(simt):.3f} [{simt[0]:.3f}, {simt[-1]:.3f}] [{card}]")
+
+
 def _drive_slice(tts, label: str, card: str, root: str, wavs: str, sig: torch.Tensor,
                  features=None) -> dict:
     """One full-width configuration through ``__call__`` and
@@ -694,6 +745,7 @@ def _drive_slice(tts, label: str, card: str, root: str, wavs: str, sig: torch.Te
     print(f"slice {label}: warm synthesize_batch B={B} wall s {[round(w, 4) for w in walls]} [{card}]")
     for name, sec in stages.items():
         print(f"slice {label}: stage {name} {sec * 1e3:.2f} ms [{card}]")
+    _mrte_routes(tts, text, mels, label, card)
     print(f"slice {label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 

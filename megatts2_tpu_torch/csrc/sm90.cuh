@@ -206,7 +206,8 @@ inline EncodeTiledFn encode_tiled() {
 // one (b, h), 128-byte swizzled.  Dimensions innermost first: (Dh, H, T, B).
 // A stride of a dimension of extent 1 is never used and is replaced.  Fails
 // with cudaErrorMisalignedAddress unless the base and the used strides are
-// multiples of 16 bytes (the rule ops/attention.py checks first).
+// multiples of 16 bytes: ops/attention.py then copies such a view and calls
+// again.
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B, int T, int H, int Dh,
                                  long long sb, long long st, long long sh, int rows) {
   const long long E = 2;  // bytes per bf16

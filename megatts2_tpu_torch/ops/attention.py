@@ -21,8 +21,9 @@ the output is in q's dtype.
   the backward at 256, their SIMT path.  The tensor-core path's forward
   splits P into bf16 hi + lo parts for P V (the row sum stays fp32).  TMA
   reads a tensor only from a 16-byte-aligned base with 16-byte strides
-  (:func:`tma_aligned`); a view that breaks this is copied first, counted
-  in each wrapper's ``layout_copies``.
+  (:func:`tma_aligned`).  The C launcher checks that rule before it
+  launches; a view it refuses is copied and the launch made again
+  (:func:`_launch_tma`), counted in each wrapper's ``layout_copies``.
 * :class:`FlashAttentionFunction` — the ``custom_vjp``: forward by kernel B
   (plain on the CPU) saving q, k, v, k_lens, m and l; backward by kernel C
   (plain on the CPU).
@@ -39,18 +40,17 @@ import torch
 from .masks import NEG_INF
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
-# bf16 head dims of the tensor-core path: the forward (kernel B) has it at
-# all three; the backward (kernel C) at 64 and 128, since no ported path
-# trains at head dim 256 (the MRTE trains under MegaG's GAN trainer, not
-# ported yet)
-TC_FWD_HEAD_DIMS = (64, 128, 256)
+# bf16 head dims of kernel C's tensor-core path: 64 and 128, since no ported
+# path trains at head dim 256 (the MRTE trains under MegaG's GAN trainer,
+# not ported yet); kernel B's forward has the path at every head dim
 TC_BWD_HEAD_DIMS = (64, 128)
 
 
 def fwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether kernel B takes its tensor-core path (``wgmma``, TMA) for this
-    dtype and head dim; otherwise its SIMT path runs."""
-    return dtype == torch.bfloat16 and head_dim in TC_FWD_HEAD_DIMS
+    dtype and head dim: bf16 at every head dim it has; otherwise its SIMT
+    path runs."""
+    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS
 
 
 def bwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
@@ -65,10 +65,7 @@ def tma_aligned(data_ptr: int, element_size: int, shape, strides) -> bool:
     (strides of extent-1 dims are never used and do not count)."""
     if strides[-1] != 1 or data_ptr % 16:
         return False
-    for n, st in zip(shape[:-1], strides[:-1]):  # a loop: all() over a generator costs ~3x on the host
-        if n != 1 and (st * element_size) % 16:
-            return False
-    return True
+    return all(n == 1 or (st * element_size) % 16 == 0 for n, st in zip(shape[:-1], strides[:-1]))
 
 
 def _tma_ready(t: torch.Tensor, wrapper) -> torch.Tensor:
@@ -78,6 +75,24 @@ def _tma_ready(t: torch.Tensor, wrapper) -> torch.Tensor:
         return t
     wrapper.layout_copies += 1
     return t.clone(memory_format=torch.contiguous_format)
+
+
+# cudaErrorMisalignedAddress: what the tensor-core launchers return, before
+# they launch anything, for a tensor off TMA's rule
+_MISALIGNED = 716
+
+
+def _launch_tma(launch, tensors, wrapper) -> int:
+    """``launch(*tensors)``'s error code on the tensor-core path.  The
+    launcher checks TMA's rule itself, so an aligned call pays no check in
+    Python; only when it refuses are the views off the rule copied
+    (:func:`_tma_ready`, counted on ``wrapper``) and the launch made again."""
+    err = launch(*tensors)
+    if err == _MISALIGNED:
+        ready = [_tma_ready(t, wrapper) for t in tensors]
+        if any(r is not t for r, t in zip(ready, tensors)):
+            err = launch(*ready)
+    return err
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -201,21 +216,23 @@ def flash_attention_cuda(
 
     B, Tq, H, Dh = q.shape
     tc = fwd_uses_tensor_cores(q.dtype, Dh) and not simt
-    if tc:
-        q, k, v = (_tma_ready(t, flash_attention_cuda) for t in (q, k, v))
     lib = load_library()
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     m = l = None
     if return_stats:
         m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]  # stride(i) costs ~4x stride()
-    with torch.cuda.device(q.device):
-        err = lib.mt_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_lens), out.data_ptr(),
-            _ptr(m), _ptr(l), B, Tq, k.shape[1], H, Dh, *strides, int(causal), Dh**-0.5,
-            _dtype_code(q, simt), torch.cuda.current_stream().cuda_stream,
-        )
+
+    def launch(q, k, v):
+        strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+        with torch.cuda.device(q.device):
+            return lib.mt_flash_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_lens), out.data_ptr(),
+                _ptr(m), _ptr(l), B, Tq, k.shape[1], H, Dh, *strides, int(causal), Dh**-0.5,
+                _dtype_code(q, not tc), torch.cuda.current_stream().cuda_stream,
+            )
+
+    err = _launch_tma(launch, (q, k, v), flash_attention_cuda) if tc else launch(q, k, v)
     check(err, "flash attention kernel")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.tc_launches += int(tc)
@@ -254,8 +271,6 @@ def flash_attention_bwd_cuda(
     if g.stride(-1) != 1:
         g = g.contiguous()
     tc = bwd_uses_tensor_cores(q.dtype, Dh) and not simt
-    if tc:
-        q, k, v, g = (_tma_ready(t, flash_attention_bwd_cuda) for t in (q, k, v, g))
     from ..csrc.build import check, load_library
 
     lib = load_library()
@@ -263,14 +278,20 @@ def flash_attention_bwd_cuda(
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     dsum = torch.empty_like(m)  # D = rowsum(dp * P), written by pass 1
-    strides = (ctypes.c_longlong * 21)(*[st for t in (q, k, v, g, dq, dk, dv) for st in t.stride()[:3]])
-    with torch.cuda.device(q.device):
-        err = lib.mt_flash_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(k_lens),
-            m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, Tq, k.shape[1], H, Dh, strides, int(causal), Dh**-0.5,
-            _dtype_code(q, simt), torch.cuda.current_stream().cuda_stream,
+
+    def launch(q, k, v, g):
+        strides = (ctypes.c_longlong * 21)(
+            *[t.stride(i) for t in (q, k, v, g, dq, dk, dv) for i in range(3)]
         )
+        with torch.cuda.device(q.device):
+            return lib.mt_flash_attn_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(k_lens),
+                m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, Tq, k.shape[1], H, Dh, strides, int(causal), Dh**-0.5,
+                _dtype_code(q, not tc), torch.cuda.current_stream().cuda_stream,
+            )
+
+    err = _launch_tma(launch, (q, k, v, g), flash_attention_bwd_cuda) if tc else launch(q, k, v, g)
     check(err, "flash attention backward kernel")
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.tc_launches += int(tc)

@@ -1,36 +1,40 @@
 """Where a kernel call's time goes: the device, or the host that issues it.
 
-    python megatts2_tpu_torch/tools/kernel_times.py [--root DIR] [--label NAME]
+    python megatts2_tpu_torch/tools/kernel_times.py [--root DIR]
 
-For kernel B at the PLM's training shape (8, 1024, 16, 64) bf16 causal
-with statistics and at the MRTE's (8, 64, 2, 256) bf16 with mixed lengths
-(its default path and its SIMT path), and kernel A (log-mel) at the
-batched front end's (8, 131000) and a prompt's (64001,), prints one JSON
-line each with three times per call, on the card:
+For kernels A and B at the synthesis path's shapes (:func:`cases`, the
+inputs ``chip_smoke.py`` times too), prints one JSON line each with three
+times per call, on the card:
 
 * ``event_ms`` — CUDA events around 20 back-to-back warm calls;
 * ``device_us`` — the kernel's own span in a ``torch.profiler`` trace;
-* ``host_us`` — the host clock around 200 calls with no synchronisation:
-  what the wrapper (Python, ctypes, allocation) costs to issue one call.
+* ``host_us`` — what the wrapper (Python, ctypes, allocation) costs the
+  host to issue one call: the median over 21 rounds of the host clock
+  around 100 calls with no synchronisation, the cases taking turns round
+  by round (:func:`host_us`).
 
 When ``host_us`` exceeds ``device_us`` the event time measures the host.
-``--root`` imports ``megatts2_tpu_torch`` from another checkout (an older
-tree unpacked beside this one), so two versions are timed by one script on
-one card; the wrappers' signatures are the same in both.  Needs a card.
+One more case, host work alone, is the Python check of TMA's rule on the
+MRTE's q, k, v, which kernel B's wrapper makes only after its launcher
+refuses a view.  ``--root`` imports ``megatts2_tpu_torch`` from another
+checkout (an older tree unpacked beside this one), so two versions are
+timed by one script on one card; each record's ``package`` names the tree.
+Needs a card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]  # the checkout that holds this file
-HOST_ITERS = 200
+HOST_ITERS, HOST_ROUNDS = 100, 21
 EVENT_ITERS = 20
 
 
@@ -53,24 +57,31 @@ def trace_kernels(fn: Callable, n: int = 2) -> dict:
     return ms
 
 
-def host_us(fn: Callable, iters: int = HOST_ITERS) -> float:
-    """Host microseconds to issue one call: the host clock around ``iters``
-    calls that end without a synchronisation (200 launches stay far inside
-    the launch queue, so the host never waits on the device)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
+def host_us(fns: dict[str, Callable], iters: int = HOST_ITERS, rounds: int = HOST_ROUNDS) -> dict:
+    """Host microseconds to issue one call of each of ``fns``: the median
+    over ``rounds`` of the host clock around ``iters`` calls that end
+    without a synchronisation (100 launches stay far inside the launch
+    queue, so the host never waits on the device).  The functions take
+    turns round by round, so a host that slows for a while slows them
+    alike."""
+    for fn in fns.values():
         fn()
-    t1 = time.perf_counter()
     torch.cuda.synchronize()
-    return (t1 - t0) / iters * 1e6
+    samples: dict = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            samples[name].append((time.perf_counter() - t0) / iters * 1e6)
+            torch.cuda.synchronize()
+    return {name: statistics.median(s) for name, s in samples.items()}
 
 
-def split_times(fn: Callable, kernel: str) -> dict:
-    """``event_ms``, ``device_us`` (the profiled spans whose name contains
-    ``kernel``, summed per call; None if the trace holds none) and
-    ``host_us`` of ``fn``."""
+def device_times(fn: Callable, kernel: str) -> dict:
+    """``event_ms`` of ``fn`` and its ``device_us``: the profiled spans
+    whose name contains ``kernel``, summed per call (None if the trace
+    holds none)."""
     from megatts2_tpu_torch.tools.bw_ceiling import time_ms
 
     for _ in range(3):  # a trace now and then comes back without device events: take another
@@ -79,42 +90,53 @@ def split_times(fn: Callable, kernel: str) -> dict:
         if dev:
             break
     return {"event_ms": time_ms(fn, torch.device("cuda"), EVENT_ITERS),
-            "device_us": sum(dev) * 1e3 if dev else None, "host_us": host_us(fn),
-            "traced": sorted(n[:60] for n in spans)}
+            "device_us": sum(dev) * 1e3 if dev else None}
 
 
-def cases(seed: int = 0) -> list[tuple[str, Callable, str]]:
-    """(label, call, kernel name in the trace) for kernels A and B at the
-    synthesis path's shapes."""
+def time_cases(cases: dict) -> dict:
+    """name → ``event_ms``, ``device_us`` and ``host_us`` of each of
+    :func:`cases`; the first two None for host work."""
+    out = {name: device_times(fn, kernel) if kernel else {"event_ms": None, "device_us": None}
+           for name, (fn, kernel) in cases.items()}
+    for name, us in host_us({name: fn for name, (fn, _) in cases.items()}).items():
+        out[name]["host_us"] = us
+    return out
+
+
+def inputs(dev: torch.device, seed: int = 0) -> dict:
+    """Kernel B's and A's inputs on the synthesis path: the MRTE's
+    self-attention (8, 64, 2, 256) bf16 with mixed key lengths, the batched
+    prompt front end (8, 131000) and one ~4 s prompt (64001,), fp32."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    lens = torch.randint(16, 65, (8,), generator=gen, dtype=torch.int32).to(dev)
+    return {"mrte": (q, k, v, lens), "mel": (torch.randn(8, 131000, generator=gen) * 0.1).to(dev),
+            "mel_prompt": (torch.randn(64001, generator=gen) * 0.1).to(dev)}
+
+
+def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
+    """name → (call, kernel name in the trace, or None for host work) over
+    :func:`inputs`."""
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel
 
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed)
-    y8 = (torch.randn(8, 131000, generator=gen) * 0.1).to(dev)
-    y1 = (torch.randn(64001, generator=gen) * 0.1).to(dev)
-    q, k, v = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
-    lens = torch.randint(16, 65, (8,), generator=gen, dtype=torch.int32).to(dev)
-    # the PLM's training shape, for a path this tree may not have changed
-    qp, kp, vp = (torch.randn(8, 1024, 16, 64, generator=gen).to(dev, torch.bfloat16)
-                  for _ in range(3))
-    plens = torch.tensor([1024, 1024, 960, 800, 700, 512, 384, 100], dtype=torch.int32, device=dev)
-    return [
-        ("flash +stats (8, 1024, 16, 64) bf16 causal",
-         lambda: att.flash_attention_cuda(qp, kp, vp, plens, True, return_stats=True), "flash"),
-        ("mel (8, 131000) fp32", lambda: mel.mel_spectrogram_cuda(y8), "mel"),
-        ("mel (64001,) fp32", lambda: mel.mel_spectrogram_cuda(y1), "mel"),
-        ("flash (8, 64, 2, 256) bf16 default path", lambda: att.flash_attention_cuda(q, k, v, lens),
-         "flash"),
-        ("flash (8, 64, 2, 256) bf16 simt", lambda: att.flash_attention_cuda(q, k, v, lens, simt=True),
-         "flash"),
-    ]
+    q, k, v, lens = x["mrte"]
+
+    class Counter:  # _tma_ready's wrapper argument; never counts here
+        layout_copies = 0
+
+    return {
+        "flash_mrte": (lambda: att.flash_attention_cuda(q, k, v, lens), "flash"),
+        "flash_mrte_simt": (lambda: att.flash_attention_cuda(q, k, v, lens, simt=True), "flash"),
+        "tma_check": (lambda: [att._tma_ready(t, Counter) for t in (q, k, v)], None),
+        "mel": (lambda: mel.mel_spectrogram_cuda(x["mel"]), "mel"),
+        "mel_prompt": (lambda: mel.mel_spectrogram_cuda(x["mel_prompt"]), "mel"),
+    }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(ROOT), help="checkout whose megatts2_tpu_torch to time")
-    ap.add_argument("--label", default="this tree")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     if not torch.cuda.is_available():
@@ -124,11 +146,11 @@ def main(argv=None) -> None:
     from megatts2_tpu_torch.tools.bw_ceiling import card_name
 
     load_library()
-    card = card_name(torch.device("cuda"))
-    for label, fn, kernel in cases():
-        rec = {"tree": args.label, "package": megatts2_tpu_torch.__file__, "case": label,
-               **split_times(fn, kernel), "card": card}
-        print(json.dumps(rec), flush=True)
+    dev = torch.device("cuda")
+    card = card_name(dev)
+    for name, times in time_cases(cases(inputs(dev))).items():
+        print(json.dumps({"package": megatts2_tpu_torch.__file__, "case": name, **times, "card": card}),
+              flush=True)
 
 
 if __name__ == "__main__":
