@@ -12,7 +12,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    (62377,), (8, 131000), (1, 513) and (3, 777), kernel B and its row
    statistics, kernel C (the attention backward) at the PLM's training
    shape (8, 1024, 16, 64) causal with mixed lengths that include 0, and
-   at (2, 300, 4, 128) non-causal; kernels B (with and without statistics)
+   at (2, 300, 4, 128) non-causal, and at the GAN step's MRTE shape (8, 64,
+   2, 256) bf16 on its SIMT path (timed beside its bound and SDPA's
+   autograd backward); kernels B (with and without statistics)
    and C on their bf16 tensor-core path at its edges (Tq of 1, 32, 300 and
    1000 at head dim 64, (3, 77, 4, 128); at head dim 256, where only B has
    the path, the MRTE's (8, 64, 2, 256) and (1, 3, 2, 256), (2, 300, 4,
@@ -64,6 +66,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
    ms, tokens/s and peak device memory; a few ADM steps at
    ``MegaADMConfig(tc_emb_dim=512)``, B=8, T=64; and a greedy ``plm_infer``
    from the trained weights that the teacher-forced forward agrees with.
+9. GAN reference — a small fp32 G + D (the MRTE at head dim 64 with
+   ``use_flash``) takes 3 GAN steps on the card (kernels B and C) and 3 on
+   the CPU (plain versions) from the same seeded weights; the CPU run's
+   dropout masks, codebook samples and window starts are recorded
+   (``nn.Draws``) and replayed on the card.  Metrics, first gradients,
+   final parameters, codebook and running statistics close.
+10. GAN train — ``configs/config_gan.yaml``'s G and D at full width and
+   depth, bf16 over fp32 masters, one synthetic batch of
+   ``tools/profile_train.py``'s geometry (B=8, Tp=64, 512 timbre and 512
+   target frames, durations 1-8), through ``training.run_training`` for 6
+   steps and an eval, twice: as shipped (plain attention; no attention
+   kernel may launch) and with ``MRTEConfig(use_flash=True)`` (kernel B's
+   counters and kernel C's set to 0 before and read after: B and its
+   tensor-core path and C must launch, C's tensor-core path must not).
+   Losses finite, the codebook alive after the kmeans init, the eval
+   ``loss_re`` finite; then each run's warm step ms, peak device memory
+   and a ``torch.profiler`` breakdown of a warm step by kernel group.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -94,7 +113,9 @@ ATOL_M, RTOL_L = 1e-4, 1e-5  # kernel B's row max and row sum: fp32 sums in anot
 REL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
 PLM_B, PLM_L = 8, 1024  # tools/bench_train.py's PLM geometry
+GAN_B = 8  # tools/profile_train.py's GAN geometry: B=8, Tp=64, 512 timbre + 512 target frames
 PLM_LENS = [1024, 1024, 960, 800, 700, 512, 384, 100]  # mixed, as PLMBatchBuilder pads
+GAN_MRTE_LENS = [64, 60, 33, 64, 1, 17, 64, 48]  # phone lengths of a GAN batch, Tp 64
 # H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and operations
 # per ms by type; a kernel's bound is the larger of bytes and operations
 HBM_BYTES_PER_MS = 3.35e9
@@ -329,13 +350,13 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     split = kernel_times.time_cases(kernel_times.cases(x))
     window, fb = mel._tables(1024, 1024, 80, dev)
 
-    def mel_library():  # torch.stft + filterbank matmul + log clamp: a composite of library calls
-        spec = torch.stft(y, 1024, 256, 1024, window=window, center=True, pad_mode="reflect",
+    def mel_library(sig):  # torch.stft + filterbank matmul + log clamp: a composite of library calls
+        spec = torch.stft(sig, 1024, 256, 1024, window=window, center=True, pad_mode="reflect",
                           return_complex=True).abs()
         return torch.log(torch.clamp(spec.transpose(-1, -2) @ fb, min=1e-5))
 
     frames = mel.num_frames(y.shape[-1])
-    lib = {"mel": cuda_ms(mel_library), "flash_mrte": cuda_ms(
+    lib = {"mel": cuda_ms(lambda: mel_library(y)), "flash_mrte": cuda_ms(
         lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                v.transpose(1, 2), attn_mask=sdpa_mask(lens, 64, False)))}
     # per frame: a real 1024-point FFT (5/2 N log2 N), |X| (3 a bin), the
@@ -398,6 +419,41 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                   f"max_abs_err/max {', '.join(errs)} (rel {REL_BWD[dtype]}); "
                   f"stats m {em:.3g} (atol {ATOL_M}), l rel {el:.3g} (rtol {RTOL_L})")
     torch.cuda.synchronize()
+    # kernel C at the MRTE's shape, where the GAN step with use_flash runs
+    # it: (8, 64, 2, 256) bf16, mixed lengths, on its SIMT path
+    q, k, v, g = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+    lens = torch.tensor(GAN_MRTE_LENS, dtype=torch.int32, device=dev)
+    _, m, l = att.flash_attention_cuda(q, k, v, lens, return_stats=True)
+    tc0 = att.flash_attention_bwd_cuda.tc_launches
+    got = att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l)
+    ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l))
+    check(att.flash_attention_bwd_cuda.tc_launches == tc0, "kernel C took the tensor cores at Dh 256")
+    check(all(a <= REL_BWD[torch.bfloat16] * t for a, t in ge), f"flash bwd MRTE: {ge}")
+    err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+    t_bwd_mrte = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l),
+                          lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l))
+    split_bwd_mrte = kernel_times.time_cases({"flash_bwd_mrte": (
+        lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l), "flash_")})["flash_bwd_mrte"]
+    mask = sdpa_mask(lens, 64, False)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = g.transpose(1, 2)
+    lib_bwd_mrte = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    del out, qt, kt, vt
+    pairs = attn_pairs(GAN_MRTE_LENS, 64, 2, False)
+    bound_bwd_mrte = bound(7 * q.numel() * 2 + 2 * m.numel() * 4, 10 * 256 * pairs, "bf16")
+    print(f"kernel flash_attention_bwd (8, 64, 2, 256) bf16 simt, lens {GAN_MRTE_LENS}: max_abs_err/max "
+          f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))} "
+          f"(rel {REL_BWD[torch.bfloat16]})")
+    print(f"time flash_attention_bwd (8,64,2,256) bf16 simt (the GAN step's MRTE): kernel "
+          f"{t_bwd_mrte[0]:.4f} ms, plain {t_bwd_mrte[1]:.4f} ms, library (SDPA autograd backward) "
+          f"{lib_bwd_mrte:.4f} ms, bound {bound_bwd_mrte[0]:.5f} ms by {bound_bwd_mrte[1]} "
+          f"({10 * 256 * pairs / 1e9:.4f} GFLOP) [{card}]")
+    dev_us = split_bwd_mrte["device_us"]
+    print(f"time split flash_attention_bwd (8,64,2,256) bf16 simt: event "
+          f"{split_bwd_mrte['event_ms']:.4f} ms, device "
+          f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler), host issue "
+          f"{split_bwd_mrte['host_us']:.2f} us a call [{card}]")
     tc_edges(dev, gen, err)
 
     # timing at the PLM's training shape: (8, 1024, 16, 64) bf16 causal, mixed lengths
@@ -504,8 +560,22 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
           f"{bounds['pump'][0]:.4f} ms by {bounds['pump'][1]} [{card}]")
     del w, w32, dst
     torch.cuda.synchronize()
+    lib["flash_bwd_mrte"], bounds["flash_bwd_mrte"] = lib_bwd_mrte, bound_bwd_mrte
+    split["flash_bwd_mrte"] = split_bwd_mrte
+    # kernel A's bound at one ~4 s prompt, counted as at (8, 131000), and
+    # the library composite there
+    y1 = (torch.randn(64001, generator=gen) * 0.1).to(dev)
+    f1 = mel.num_frames(y1.shape[-1])
+    bounds["mel_prompt"] = bound(y1.numel() * 4 + f1 * 80 * 4,
+                                 f1 * (2.5 * 1024 * 10 + 3 * 513 + 2 * nnz + 80), "fp32")
+    lib["mel_prompt"] = cuda_ms(lambda: mel_library(y1))
+    t_mel_prompt = in_turns(lambda: mel.mel_spectrogram_plain(y1), lambda: mel.mel_spectrogram_cuda(y1))
+    print(f"time mel_spectrogram (64001,) fp32: kernel {t_mel_prompt[0]:.4f} ms, plain "
+          f"{t_mel_prompt[1]:.4f} ms, library {lib['mel_prompt']:.4f} ms, bound "
+          f"{bounds['mel_prompt'][0]:.5f} ms by {bounds['mel_prompt'][1]} [{card}]")
     return {"err": err, "lib": lib, "bound": bounds, "simt": simt, "tflops": tflops, "split": split,
-            "ms": {"flash": t_att, "mel": t_mel, "pump": t_pump, **times}}
+            "ms": {"flash": t_att, "mel": t_mel, "pump": t_pump, "flash_bwd_mrte": t_bwd_mrte,
+                   "mel_prompt": t_mel_prompt, **times}}
 
 
 def _configs(full: bool):
@@ -960,6 +1030,185 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
     return launches
 
 
+def _gan_batch(B: int, Tp: int, Tt: int, Tm: int, vocab: int, seed: int) -> dict:
+    """A GAN batch in GANBatchBuilder's format (``tools/profile_train.py``'s
+    geometry at full size): durations 1-8, mixed phone lengths, fp32 mels."""
+    rng = np.random.RandomState(seed)
+    lens = np.asarray((GAN_MRTE_LENS * B)[:B] if Tp == 64 else [Tp] * B, np.int32)
+    return {"duration_tokens": rng.randint(1, 9, (B, Tp)).astype(np.int32),
+            "phone_tokens": rng.randint(0, vocab, (B, Tp)).astype(np.int32),
+            "tokens_lens": lens,
+            "mel_timbres": rng.randn(B, Tt, 80).astype(np.float32),
+            "mel_targets": rng.randn(B, Tm, 80).astype(np.float32),
+            "mel_target_lens": np.full((B,), Tm, np.int32)}
+
+
+# parameters whose true gradient is 0 (softmax's shift invariance for the
+# key bias; a train-mode BatchNorm after the D's first two convs): Adam
+# turns their rounding residue into steps of up to ~lr either way
+ZERO_GRAD = ("w_k.bias", "conv.0.bias", "conv.1.bias")
+
+
+def phase_gan_reference(dev: torch.device) -> None:
+    """Small fp32 G + D, the MRTE at head dim 64 with use_flash: 3 GAN steps
+    on the card (kernels B and C, SIMT at fp32) and on the CPU (plain
+    versions) from the same seeded weights, with the CPU run's dropout
+    masks, codebook samples and window starts replayed on the card.  The
+    first step has lr 0 (warmup 1), so its gradients are the initial
+    weights'."""
+    import dataclasses
+
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.nn import Draws
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.training import create_gan_state, make_gan_train_step
+
+    g_cfg = c.MegaGConfig(
+        mrte=c.MRTEConfig(mel_stride=4, mel_n_layer=1, mel_n_stack=1, mel_n_block=1,
+                          content_ff_dim=64, content_n_heads=2, content_n_layers=2,
+                          hidden_size=128, phone_vocab_size=40, use_flash=True),
+        vqpe=c.VQPEConfig(hidden_size=32, kernel_size=3, n_layers=1, n_stacks=1, n_blocks=1,
+                          vq_bins=32, vq_dim=16),
+        kernel_size=3, hidden_size=32, decoder_n_stack=1, decoder_n_block=1)
+    d_cfg = c.DiscriminatorConfig(time_lengths=(8, 16), hidden_size=8)
+    lr = 1e-3
+    tcfg = c.TrainConfig(warmup_steps=1, initial_learning_rate=lr, train_dtype="float32",
+                         max_steps=100)
+    batch = _gan_batch(3, 12, 48, 64, 40, SEED + 8)
+    batch["tokens_lens"] = np.array([12, 7, 3], np.int32)
+    batch["mel_target_lens"] = np.array([40, 12, 30], np.int32)
+    out, recorded = {}, None
+    for d in (torch.device("cpu"), dev):
+        st = create_gan_state(g_cfg, d_cfg, tcfg, device=d)
+        st.draws = (Draws(torch.Generator().manual_seed(SEED), torch.Generator().manual_seed(SEED),
+                          record=True) if recorded is None else Draws(replay=recorded))
+        step = make_gan_train_step(g_cfg, d_cfg, tcfg)
+        fb, bb = att.flash_attention_cuda.launches, att.flash_attention_bwd_cuda.launches
+        metrics = [{k: float(v) for k, v in step(st, batch).items()}]
+        grads = {f"{n}.{p}": q.grad.cpu() for n, m in (("g", st.g), ("d", st.d))
+                 for p, q in m.named_parameters()}
+        metrics += [{k: float(v) for k, v in step(st, batch).items()} for _ in range(2)]
+        launched = (att.flash_attention_cuda.launches - fb, att.flash_attention_bwd_cuda.launches - bb)
+        state = {f"{n}.{p}": q.detach().cpu() for n, m in (("g", st.g), ("d", st.d))
+                 for p, q in list(m.named_parameters()) + list(m.named_buffers())}
+        out[d.type] = metrics, grads, state, launched
+        recorded = recorded or st.draws.recorded
+        del st
+    (m0, g0, s0, _), (m1, g1, s1, launched) = out["cpu"], out["cuda"]
+    check(launched[0] > 0 and launched[1] > 0, f"GAN reference: kernels B, C not launched {launched}")
+    for a, b in zip(m1, m0):
+        check(all(np.isclose(a[k], b[k], rtol=1e-4, atol=1e-6) for k in b),
+              f"GAN reference: metrics {a} vs {b}")
+    g_top = max(g.abs().max().item() for g in g0.values())
+    g_err = max((g1[n] - g).abs().max().item() for n, g in g0.items())
+    params = {n for n, _ in g0.items()}
+    p_err = max((s1[n] - s0[n]).abs().max().item() for n in params if not n.endswith(ZERO_GRAD))
+    z_err = max((s1[n] - s0[n]).abs().max().item() for n in params if n.endswith(ZERO_GRAD))
+    b_err = max(((s1[n] - s0[n]).abs().max() / s0[n].abs().max().clamp(min=1e-30)).item()
+                for n in s0 if n not in params)
+    check(g_err <= 1e-4 * g_top, f"GAN reference: gradients err {g_err}, max {g_top}")
+    check(p_err <= 0.05 * 2 * lr and z_err <= 2.1 * 2 * lr,
+          f"GAN reference: params err {p_err}, zero-gradient params {z_err}")
+    check(b_err <= 1e-4, f"GAN reference: codebook / running statistics rel err {b_err}")
+    print(f"GAN reference fp32 small G + D (MRTE head dim 64, use_flash), card vs CPU, 3 steps with "
+          f"the CPU's draws replayed: metrics within rtol 1e-4 (G_loss_total "
+          f"{[round(m['G_loss_total'], 6) for m in m1]} vs {[round(m['G_loss_total'], 6) for m in m0]}); "
+          f"gradients max_abs_err {g_err:.3g} of max {g_top:.3g} (rel 1e-4); params {p_err:.3g} "
+          f"(atol {0.05 * 2 * lr:.3g}), zero-gradient params {z_err:.3g} (atol {2.1 * 2 * lr:.3g}); "
+          f"codebook and running statistics rel {b_err:.3g} (1e-4); launches fwd {launched[0]} "
+          f"bwd {launched[1]}")
+
+
+def _group(name: str) -> str:
+    if "flash_" in name:
+        return "attention B, C"
+    if re.search(r"conv|cudnn|fprop|dgrad|wgrad|implicit", name, re.I):
+        return "conv"
+    if re.search(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", name):
+        return "matmul"
+    return "other"
+
+
+def phase_gan_train(dev: torch.device, card: str, root: str) -> dict:
+    """The full-width GAN step (``configs/config_gan.yaml``'s G and D, bf16
+    over fp32 masters) through ``run_training`` for 6 steps on one batch of
+    ``tools/profile_train.py``'s geometry, as shipped (plain attention) and
+    with ``use_flash`` (kernel B's and C's counters set to 0 just before
+    and read just after)."""
+    import dataclasses
+
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.tools.kernel_times import trace_kernels
+    from megatts2_tpu_torch.training import (create_gan_state, make_gan_eval_step,
+                                             make_gan_train_step, run_training)
+
+    d_cfg, tcfg = c.DiscriminatorConfig(), c.TrainConfig(train_dtype="bfloat16")
+    batch = _gan_batch(GAN_B, 64, 512, 512, 320, SEED + 9)
+    res = {}
+    for label, flash in (("as shipped, plain attention", False), ("use_flash", True)):
+        g_cfg = c.MegaGConfig(mrte=c.MRTEConfig(use_flash=flash))
+        t0 = time.perf_counter()
+        st = create_gan_state(g_cfg, d_cfg, tcfg, device=dev)
+        n_g = sum(p.numel() for p in st.g.parameters())
+        n_d = sum(p.numel() for p in st.d.parameters())
+        print(f"gan {label}: full-width G {n_g} + D {n_d} fp32 parameters, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        step, evaluate = make_gan_train_step(g_cfg, d_cfg, tcfg), make_gan_eval_step(g_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in (att.flash_attention_cuda, att.flash_attention_bwd_cuda):
+            fn.launches = fn.tc_launches = 0
+        name = "gan_flash" if flash else "gan_plain"
+        log_dir = os.path.join(root, "logs")
+        run_training(name, st, step, lambda epoch: [batch], max_steps=6, log_dir=log_dir,
+                     log_every=1, val_every=6, eval_step=evaluate,
+                     valid_loader_factory=lambda epoch: [batch])
+        torch.cuda.synchronize()
+        launches = {"flash": att.flash_attention_cuda.launches,
+                    "flash_tc": att.flash_attention_cuda.tc_launches,
+                    "flash_bwd": att.flash_attention_bwd_cuda.launches,
+                    "flash_bwd_tc": att.flash_attention_bwd_cuda.tc_launches}
+        print(f"gan {label}: launches on this path {launches}")
+        if flash:
+            check(launches["flash"] > 0 and launches["flash_tc"] > 0 and launches["flash_bwd"] > 0,
+                  f"gan use_flash: kernel B, its tensor-core path or kernel C was not launched: {launches}")
+            check(launches["flash_bwd_tc"] == 0, "gan use_flash: kernel C took the tensor cores at Dh 256")
+        else:
+            check(sum(launches.values()) == 0, f"gan as shipped: attention kernels launched {launches}")
+        with open(os.path.join(log_dir, f"{name}_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        train = [r for r in rows if "train/G_loss_total" in r]
+        val = [r["val/loss_re"] for r in rows if "val/loss_re" in r]
+        keys = [k for k in train[0] if k.startswith("train/") and k != "train/host_rss_gb"]
+        check(len(train) == 6 and all(np.isfinite(r[k]) for r in train for k in keys),
+              f"gan {label}: metrics {train}")
+        check(all(r["train/vq_code_usage"] > 0 for r in train), f"gan {label}: dead codebook")
+        check(len(val) == 1 and np.isfinite(val[0]), f"gan {label}: eval loss_re {val}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"gan {label}: G_loss_total {[round(r['train/G_loss_total'], 4) for r in train]}, "
+              f"D_loss_total {[round(r['train/D_loss_total'], 4) for r in train]}, vq_code_usage "
+              f"{[round(r['train/vq_code_usage'], 4) for r in train]}; eval loss_re {val[0]:.4f}")
+        ms = _steps_ms(step, st, batch)
+        kernels = trace_kernels(lambda: step(st, batch))
+        groups = dict.fromkeys(("conv", "matmul", "attention B, C", "other"), 0.0)
+        for kname, t in kernels.items():
+            groups[_group(kname)] += t
+        busy = sum(groups.values())
+        top = [(kname[:48], round(t, 3)) for kname, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]]
+        print(f"gan {label}: warm step {ms:.2f} ms (B={GAN_B}, 512 + 512 frames), peak device memory "
+              f"{peak:.2f} GiB [{card}]")
+        print(f"gan {label}: trace of a warm step (torch.profiler), device ms by kernel group "
+              f"{ {k: round(v, 3) for k, v in groups.items()} }, busy {busy:.2f} of {ms:.2f} ms "
+              f"({1 - busy / ms:.1%} idle), {len(kernels)} kernel names; top {top} [{card}]")
+        res[flash] = {"ms": ms, "peak": peak, "launches": launches, "groups": groups}
+        del st, step, evaluate
+        torch.cuda.empty_cache()
+    print(f"gan: warm step ms, plain attention {res[False]['ms']:.2f}, use_flash {res[True]['ms']:.2f} "
+          f"[{card}]")
+    return res[True]["launches"]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -972,6 +1221,8 @@ def main() -> None:
         pump_launches = phase_bandwidth(card)
         phase_train_reference(dev)
         train = phase_train(dev, card, root)
+        phase_gan_reference(dev)
+        gan = phase_gan_train(dev, card, root)
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
 
     def _ms(us):
@@ -990,13 +1241,16 @@ def main() -> None:
             "(8, 131000) fp32", library="torch.stft + filterbank matmul + log (composite)",
             launches_by_path={label: s["mel"] for label, s in slices.items()},
             device_ms=_ms(k["split"]["mel"]["device_us"]), host_ms=k["split"]["mel"]["host_us"] / 1e3,
-            device_ms_prompt=_ms(k["split"]["mel_prompt"]["device_us"])),
+            device_ms_prompt=_ms(k["split"]["mel_prompt"]["device_us"]),
+            ms_prompt=k["ms"]["mel_prompt"][0], plain_ms_prompt=k["ms"]["mel_prompt"][1],
+            bound_ms_prompt=k["bound"]["mel_prompt"][0], library_ms_prompt=k["lib"]["mel_prompt"]),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
-            "flash_plm", "flash", synth["flash"] + train["flash"],
+            "flash_plm", "flash", synth["flash"] + train["flash"] + gan["flash"],
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
             launches_by_path={**{label: s["flash"] for label, s in slices.items()},
-                              "train": train["flash"]},
-            tc_launches=synth["flash_tc"] + train["flash_tc"], ms_simt=k["simt"]["flash_plm"],
+                              "train": train["flash"], "gan": gan["flash"]},
+            tc_launches=synth["flash_tc"] + train["flash_tc"] + gan["flash_tc"],
+            ms_simt=k["simt"]["flash_plm"],
             tflops=k["tflops"]["flash_plm"],
             ms_mrte=k["ms"]["flash"][0], plain_ms_mrte=k["ms"]["flash"][1],
             bound_ms_mrte=k["bound"]["flash_mrte"][0], library_ms_mrte=k["lib"]["flash_mrte"],
@@ -1006,9 +1260,16 @@ def main() -> None:
             ms_prefill_256=k["ms"]["prefill_256"][0], ms_simt_prefill_256=k["simt"]["prefill_256"],
             library_ms_prefill_256=k["lib"]["prefill_256"]),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",
-            "flash_bwd", "flash_bwd", train["flash_bwd"], "(8, 1024, 16, 64) bf16 causal",
-            library="scaled_dot_product_attention backward", tc_launches=train["flash_bwd_tc"],
-            ms_simt=k["simt"]["flash_bwd"], tflops=k["tflops"]["flash_bwd"]),
+            "flash_bwd", "flash_bwd", train["flash_bwd"] + gan["flash_bwd"],
+            "(8, 1024, 16, 64) bf16 causal", library="scaled_dot_product_attention backward",
+            launches_by_path={"train": train["flash_bwd"], "gan": gan["flash_bwd"]},
+            tc_launches=train["flash_bwd_tc"] + gan["flash_bwd_tc"],
+            ms_simt=k["simt"]["flash_bwd"], tflops=k["tflops"]["flash_bwd"],
+            ms_mrte=k["ms"]["flash_bwd_mrte"][0], plain_ms_mrte=k["ms"]["flash_bwd_mrte"][1],
+            bound_ms_mrte=k["bound"]["flash_bwd_mrte"][0],
+            library_ms_mrte=k["lib"]["flash_bwd_mrte"],
+            device_ms_mrte=_ms(k["split"]["flash_bwd_mrte"]["device_us"]),
+            host_ms_mrte=k["split"]["flash_bwd_mrte"]["host_us"] / 1e3),
         row("pump", "pump.cu", "tools/bw_ceiling.py:154", "pump", "pump", pump_launches,
             f"{PUMP_SHAPE} int8 x {PUMP_STEPS} passes",
             library=f"{PUMP_STEPS} x torch.sum(W.view(int32), dtype=int64)",

@@ -3,30 +3,35 @@
 ``load_flax_params(module, tree)`` takes a tree as nested dicts of numpy
 arrays (or anything ``np.asarray`` reads) and fills ``module`` in place:
 
-* MegaG takes the generator's variables ``{"params": ..., "vq_stats": ...}``;
-  MegaPLM, MegaADM, HiFiGAN and Vocos take their ``params``.
+* MegaG takes the generator's variables ``{"params": ..., "vq_stats": ...}``
+  (the VQPE encoder and its codebook included), as does the
+  VQProsodyEncoder alone; the Discriminator
+  ``{"params": ..., "batch_stats": ...}``; MegaPLM, MegaADM, HiFiGAN and
+  Vocos take their ``params``.
 * Dense ``kernel`` (in, out) → Linear ``weight`` (out, in).
 * A ``quantize_tree`` leaf set ``{kernel_q, scale, bias}`` → the
   ``QuantLinear`` that ``quantize_`` put in the Linear's place:
   ``kernel_q`` (in, out) int8 or (in/2, out) packed uint8 → ``weight_q``
   (out, in) or (out, in/2); ``scale`` and ``bias`` by name, fp32.
-* Conv ``kernel`` (k, in/groups, out) → Conv1d ``weight`` (out, in/groups, k).
+* Conv ``kernel`` (k, in/groups, out) → Conv1d ``weight`` (out, in/groups, k);
+  (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw).
 * HiFi-GAN ``TransposedConv1d`` ``kernel`` (k, in, out), stored flipped along
   k (``training/convert.py``) → ConvTranspose1d ``weight`` (in, out, k) =
   ``kernel[::-1].transpose(1, 2, 0)``.
 * LayerNorm ``scale``/``bias`` → ``weight``/``bias``; Embed ``embedding`` →
-  ``weight``; other parameters and buffers by name.
-* Scan-stacked ``layers`` (leading layer axis) are unstacked into the
-  ``ModuleList``; ``name_<i>`` submodules go to ``name[i]``.
+  ``weight``; other parameters and buffers by name (the codebook's
+  ``vq_stats``, BatchNorm's ``scale``, ``bias``, ``mean`` and ``var``).
+* A key naming a ``ModuleList`` itself is scan-stacked (``nn.scan``: the
+  transformer's ``layers``, ``scan_stacks``' ``conv_stacks``): every leaf
+  under it carries a leading axis of the list's length and is unstacked
+  into the list.  ``name_<i>`` submodules go to ``name[i]``.
 * ``w_q``, ``w_k``, ``w_v`` are concatenated along the output axis into the
   decode layers' merged ``qkv`` projection: kernels (float or quantized),
   scales and biases.
-* The codebook's ``vq_stats`` (JAX ``vqpe.vq``) fill the buffers of ``g.vq``.
 
-It raises on any flax leaf it does not consume, on any shape mismatch, and
-on any parameter or persistent buffer of the module left unfilled.  The one
-exception is the VQPE encoder (``params/vqpe``), which is not ported yet
-and is skipped by name.
+It raises on any flax leaf or collection it does not consume, on any
+shape mismatch, and on any parameter or persistent buffer of the module
+left unfilled.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.dscrm import Discriminator
 from .models.megag import MegaG
+from .models.vqpe import VQProsodyEncoder
 from .quantization.weight_only import QuantLinear
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
@@ -58,6 +65,8 @@ def _leaf(module: nn.Module, key: str, value: np.ndarray, path: str, filled: set
         _assign(module.weight_q, value.T, path, filled)
     elif isinstance(module, nn.Conv1d) and key == "kernel":
         _assign(module.weight, value.transpose(2, 1, 0), path, filled)
+    elif isinstance(module, nn.Conv2d) and key == "kernel":
+        _assign(module.weight, value.transpose(3, 2, 0, 1), path, filled)
     elif isinstance(module, nn.ConvTranspose1d) and key == "kernel":
         _assign(module.weight, value[::-1].transpose(1, 2, 0), path, filled)
     elif isinstance(module, nn.LayerNorm) and key == "scale":
@@ -90,7 +99,7 @@ def _load(module: nn.Module, tree: dict, path: str, filled: set) -> None:
         sub = f"{path}/{key}"
         if isinstance(value, dict):
             child = module._modules.get(key)
-            if key == "layers" and isinstance(child, nn.ModuleList):
+            if isinstance(child, nn.ModuleList):
                 for i, layer in enumerate(child):  # scan-stacked: leading layer axis
                     _load(layer, _index(value, i, len(child), sub), f"{sub}[{i}]", filled)
             else:
@@ -112,20 +121,23 @@ def _index(tree: dict, i: int, n: int, path: str) -> dict:
     return out
 
 
+# the flax collections each model's tree holds; any other takes its params
+_COLLECTIONS = {MegaG: ("params", "vq_stats"), VQProsodyEncoder: ("params", "vq_stats"),
+                Discriminator: ("params", "batch_stats")}
+
+
 def load_flax_params(module: nn.Module, flax_tree: dict) -> nn.Module:
     """Fill ``module`` from a flax tree in place (see module docstring)."""
     filled: set = set()
-    if isinstance(module, MegaG):
-        params = {k: v for k, v in flax_tree["params"].items() if k != "vqpe"}
-        _load(module, params, "params", filled)
-        _load(module.vq, flax_tree["vq_stats"]["vqpe"]["vq"], "vq_stats/vqpe/vq", filled)
-        extra = set(flax_tree) - {"params", "vq_stats"}
-        extra |= {f"vq_stats/{k}" for k in set(flax_tree["vq_stats"]) - {"vqpe"}}
-        extra |= {f"vq_stats/vqpe/{k}" for k in set(flax_tree["vq_stats"]["vqpe"]) - {"vq"}}
+    names = _COLLECTIONS.get(type(module))
+    if names is None:
+        _load(module, flax_tree, "params", filled)
+    else:
+        extra = set(flax_tree) - set(names)
         if extra:
             raise KeyError(f"unconsumed flax collections: {sorted(extra)}")
-    else:
-        _load(module, flax_tree, "params", filled)
+        for name in names:
+            _load(module, flax_tree[name], name, filled)
     persistent = [
         (f"{mname}.{bname}", b)
         for mname, m in module.named_modules()

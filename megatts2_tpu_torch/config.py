@@ -1,4 +1,4 @@
-"""Frozen dataclass configs of the synthesis, serving and PLM/ADM training slices.
+"""Frozen dataclass configs of the synthesis, serving and training slices.
 
 Same names, fields and defaults as ``megatts2_tpu/config.py``; a test holds
 them field for field.  They are declared here rather than imported because
@@ -58,6 +58,15 @@ class MegaGConfig:
     decoder_n_stack: int = 4
     decoder_n_block: int = 2
     scan_stacks: bool = False  # JAX compile-time option; no effect here
+
+
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    time_lengths: Tuple[int, ...] = (32, 64, 128)
+    freq_length: int = 80
+    kernel: Tuple[int, int] = (3, 3)
+    c_in: int = 1
+    hidden_size: int = 192
 
 
 @dataclass(frozen=True)
@@ -126,7 +135,7 @@ class VocosConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """PLM / ADM (and, later, GAN) training knobs.  ``train_dtype`` is the
+    """PLM, ADM and GAN training knobs.  ``train_dtype`` is the
     compute dtype over fp32 master weights and optimizer state."""
 
     initial_learning_rate: float = 3e-5

@@ -1,7 +1,9 @@
 from .adm import MegaADM, adm_infer
+from .dscrm import Discriminator, SingleWindowDisc
 from .hifigan import HiFiGAN
 from .megag import MegaG
 from .megatts import Megatts, init_random_, synthesize, vocode
 from .mrte import MRTE
 from .plm import MegaPLM, plm_infer
 from .vocos import Vocos
+from .vqpe import VQProsodyEncoder

@@ -28,8 +28,8 @@ returns the compute dtype, and the residual stream stays in it.  Attention
 is the masked flash attention of ``ops/attention.py`` (kernels B and C on
 the card) under ``use_flash``, else the additive mask through
 ``nn/transformer.attend``, as the JAX encoder chooses.  Dropout sits after
-the output projection and on the FF hidden, drawn from an explicit
-``torch.Generator``.
+the output projection and on the FF hidden, its masks drawn from an
+explicit ``torch.Generator`` (``nn/dropout.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.dropout import Draws, dropout
+from ..nn.layers import layer_norm, linear
 from ..nn.transformer import attend
 from ..ops.attention import flash_attention
 from ..ops.masks import causal_mask, make_attn_mask
@@ -50,25 +52,7 @@ def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     or ``QDense`` for a :class:`QuantLinear`."""
     if isinstance(layer, QuantLinear):
         return qdense(layer, x)
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
-
-
-def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=x.dtype)``: fp32 statistics and affine, output in x's dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
-                        norm.bias.float(), norm.eps).to(x.dtype)
-
-
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by its
-    inverse; the identity at rate 0.  ``generator`` lives on x's device."""
-    if rate == 0.0:
-        return x
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    return linear(layer, x)
 
 
 class CachedSelfAttention(nn.Module):
@@ -97,7 +81,7 @@ class DecoderLayer(nn.Module):
         k_lens: Optional[torch.Tensor],  # (B,) on the flash path
         causal: bool,
         rate: float,
-        generator: Optional[torch.Generator],
+        draws: Optional[Draws],
         ckv: Optional[torch.Tensor] = None,  # (B, L >= T, 2D) cache to prefill
     ) -> torch.Tensor:
         """Pre-LN layer over the whole sequence:
@@ -114,8 +98,8 @@ class DecoderLayer(nn.Module):
             att = flash_attention(q, k, v, k_lens, causal)
         else:
             att = attend(q, k, v, mask)
-        x = x + dropout(dense(self.attn.out_proj, att.reshape(B, T, D)), rate, generator)
-        h = dropout(F.relu(dense(self.ff_linear1, layer_norm(self.norm2, x))), rate, generator)
+        x = x + dropout(dense(self.attn.out_proj, att.reshape(B, T, D)), rate, draws)
+        h = dropout(F.relu(dense(self.ff_linear1, layer_norm(self.norm2, x))), rate, draws)
         return x + dense(self.ff_linear2, h)
 
     def step(self, x: torch.Tensor, ckv: torch.Tensor, t: int) -> torch.Tensor:
@@ -171,9 +155,10 @@ class DecoderStack(nn.Module):
                 k_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
             else:
                 mask = causal_mask(T, device=x.device)
-        rate = self.dropout if train else 0.0
+        draws = Draws(generator) if train else None
         for i, layer in enumerate(self.layers):
-            x = layer(x, mask, k_lens, causal, rate, generator, None if caches is None else caches[i])
+            x = layer(x, mask, k_lens, causal, self.dropout, draws,
+                      None if caches is None else caches[i])
         return x
 
     @property

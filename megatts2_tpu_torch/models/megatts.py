@@ -123,7 +123,7 @@ def synthesize(
     clock("plm")
 
     # 5. codebook lookup, ×8 repeat, mel decode
-    zq = g.vq.decode(p_codes[None]).repeat_interleave(8, dim=1)
+    zq = g.vqpe.vq.decode(p_codes[None]).repeat_interleave(8, dim=1)
     mel_hat = g.decode_latents(tc_expand, zq)  # (B, Tf, 80)
     clock("decoder")
 
@@ -134,21 +134,27 @@ def synthesize(
 
 
 def _cast_(module: nn.Module, dtype: torch.dtype, keep: Sequence[str] = ()) -> None:
-    """Cast ``module``'s direct children to ``dtype`` in place, except those
-    named in ``keep``, which stay as they are (fp32)."""
+    """Cast ``module``'s submodules to ``dtype`` in place, except those
+    named in ``keep`` (dotted paths, e.g. ``vqpe.vq``), which stay as they
+    are (fp32)."""
     for name, child in module.named_children():
-        if name not in keep:
+        inner = [k[len(name) + 1:] for k in keep if k.startswith(name + ".")]
+        if name in keep:
+            continue
+        if inner:
+            _cast_(child, dtype, inner)
+        else:
             child.to(dtype)
 
 
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill a freshly built model with seeded random weights, in place:
-    Linear and (transposed) Conv1d weights N(0, 1/fan_in) with zero biases,
+    Linear, Conv2d and (transposed) Conv1d weights N(0, 1/fan_in) with zero biases,
     embeddings and codebooks N(0, 1); LayerNorms and layer scales keep their
     defaults.  Synthesis speed does not depend on the weights."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
             # a transposed conv's output sums in_channels * k / stride taps
             fan_in = (m.in_channels * m.kernel_size[0] // m.stride[0]
                       if isinstance(m, nn.ConvTranspose1d) else m.weight[0].numel())
@@ -167,7 +173,7 @@ class Megatts:
     ``test.wav`` with the prompt audio and the generated speech.
 
     The modules are moved to ``device`` and cast to ``dtype`` in place; the
-    codebook (``g.vq``) and the Vocos ``head`` stay fp32, HiFi-GAN is cast
+    codebook (``g.vqpe.vq``) and the Vocos ``head`` stay fp32, HiFi-GAN is cast
     whole.  ``quant_int8`` quantizes the PLM's Linear layers to int8 from
     their fp32 weights before the cast, and their scales and biases stay
     fp32; the ADM stays float, as in JAX.  ``plm_temperature`` > 0 samples
@@ -197,7 +203,7 @@ class Megatts:
             m.to(self.device).eval()
         if quant_int8:
             quantize_(plm, 8)
-        _cast_(g, dtype, keep=("vq",))
+        _cast_(g, dtype, keep=("vqpe.vq",))
         cast_float_(plm, dtype)
         adm.to(dtype)
         _cast_(vocoder, dtype, keep=("head",) if isinstance(vocoder, Vocos) else ())

@@ -1,21 +1,32 @@
 """1-D convolutional stacks (port of ``megatts2_tpu/nn/convnet.py``).
 
 Public layout is (B, T, C) channels-last, as in JAX; each convolution
-transposes to PyTorch's (B, C, T) around ``conv1d`` and back.
-* ConvBlock   = activation → Conv1d(same pad) → LayerNorm(channels)
+transposes to PyTorch's (B, C, T) around ``conv1d`` and back, with its
+weight and bias cast to the input's dtype.
+* ConvBlock   = activation → dropout(0.1, train only) → Conv1d(same pad)
+  → LayerNorm(channels)
 * ResidualBlockStack = n_stacks × (x = x + ConvStack(x))
 * ConvNet     = first conv → residual stacks → last conv
-* ConvNetDouble = first conv → n_layers parallel (stack → strided-conv
-  middle → stack) branches SUMMED → last conv, with ONE middle layer
-  shared by all branches.
+* ConvNetDouble = first conv → n_layers parallel (stack → middle → stack)
+  branches SUMMED → last conv, with ONE middle layer shared by all
+  branches: a strided conv (``middle_kind="conv"``, the MRTE's mel
+  encoder) or MaxPool1d(stride, ceil_mode) (``"maxpool"``, the VQPE's).
+
+Each ``forward`` takes ``draws`` (``nn/dropout.py``): train-mode dropout
+draws its masks from it; ``None`` is eval.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .dropout import Draws, dropout
+from .layers import LayerNorm
+
+CONV_DROPOUT = 0.1  # fixed in the reference's ConvBlock
 
 _ACTS: dict[str, Callable] = {
     "ReLU": F.relu,
@@ -31,10 +42,11 @@ def get_activation(name: str) -> Callable:
 
 
 class ChannelsLastConv1d(nn.Conv1d):
-    """``nn.Conv1d`` on (B, T, C) input and output."""
+    """``nn.Conv1d`` on (B, T, C) input and output, computing in x's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x.transpose(1, 2), self.weight.to(x.dtype), bias).transpose(1, 2)
 
 
 def same_conv(c_in: int, c_out: int, kernel_size: int) -> ChannelsLastConv1d:
@@ -46,10 +58,10 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.act = get_activation(activation)
         self.conv = same_conv(hidden_size, hidden_size, kernel_size)
-        self.norm = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.norm = LayerNorm(hidden_size, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.conv(self.act(x)))
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None) -> torch.Tensor:
+        return self.norm(self.conv(dropout(self.act(x), CONV_DROPOUT, draws)))
 
 
 class ConvStack(nn.Module):
@@ -59,9 +71,9 @@ class ConvStack(nn.Module):
             ConvBlock(hidden_size, kernel_size, activation) for _ in range(n_blocks)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x)
+            x = block(x, draws)
         return x
 
 
@@ -74,9 +86,9 @@ class ResidualBlockStack(nn.Module):
             ConvStack(hidden_size, n_blocks, kernel_size, activation) for _ in range(n_stacks)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None) -> torch.Tensor:
         for stack in self.conv_stacks:
-            x = x + stack(x)
+            x = x + stack(x, draws)
         return x
 
 
@@ -94,6 +106,19 @@ class StridedConvMiddle(nn.Module):
         return self.conv(x)
 
 
+class MaxPoolMiddle(nn.Module):
+    """MaxPool1d(stride, ceil_mode=True): output length ceil(T / stride),
+    the last window over the frames that remain (JAX pads it with -inf)."""
+
+    def __init__(self, stride: int):
+        super().__init__()
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool1d(x.transpose(1, 2), self.stride, self.stride,
+                            ceil_mode=True).transpose(1, 2)
+
+
 class ConvNet(nn.Module):
     def __init__(
         self, in_channels: int, out_channels: int, hidden_size: int, n_stacks: int,
@@ -106,8 +131,8 @@ class ConvNet(nn.Module):
         )
         self.last_layer = same_conv(hidden_size, out_channels, kernel_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.last_layer(self.conv_stack(self.first_layer(x)))
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None) -> torch.Tensor:
+        return self.last_layer(self.conv_stack(self.first_layer(x), draws))
 
 
 class ConvNetDoubleLayer(nn.Module):
@@ -119,33 +144,39 @@ class ConvNetDoubleLayer(nn.Module):
         self.conv_stack1 = ResidualBlockStack(*args)
         self.conv_stack2 = ResidualBlockStack(*args)
 
-    def forward(self, x: torch.Tensor, middle: nn.Module) -> torch.Tensor:
-        return self.conv_stack2(middle(self.conv_stack1(x)))
+    def forward(self, x: torch.Tensor, middle: nn.Module,
+                draws: Optional[Draws] = None) -> torch.Tensor:
+        return self.conv_stack2(middle(self.conv_stack1(x, draws)), draws)
 
 
 class ConvNetDouble(nn.Module):
-    """n_layers parallel downsampling branches, summed, sharing one strided
-    conv middle layer (the MRTE mel encoder; JAX ``middle_kind="conv"``).
-    The max-pool middle of the VQPE encoder comes with that encoder."""
+    """n_layers parallel downsampling branches, summed, sharing one middle
+    layer: ``middle_kind`` "conv" (a strided conv, the one set of weights
+    all branches use) or "maxpool"."""
 
     def __init__(
         self, in_channels: int, out_channels: int, hidden_size: int, n_layers: int,
         n_stacks: int, n_blocks: int, kernel_size: int, activation: str,
-        middle_stride: int = 16,
+        middle_kind: str = "maxpool", middle_stride: int = 8,
     ):
         super().__init__()
         self.first_layer = same_conv(in_channels, hidden_size, kernel_size)
-        self.middle_layer = StridedConvMiddle(hidden_size, middle_stride)
+        if middle_kind == "conv":
+            self.middle_layer = StridedConvMiddle(hidden_size, middle_stride)
+        elif middle_kind == "maxpool":
+            self.middle_layer = MaxPoolMiddle(middle_stride)
+        else:
+            raise ValueError(f"middle_kind {middle_kind!r} is neither 'conv' nor 'maxpool'")
         self.layers = nn.ModuleList(
             ConvNetDoubleLayer(hidden_size, n_stacks, n_blocks, kernel_size, activation)
             for _ in range(n_layers)
         )
         self.last_layer = same_conv(hidden_size, out_channels, kernel_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None) -> torch.Tensor:
         x = self.first_layer(x)
         out = None
         for layer in self.layers:
-            y = layer(x, self.middle_layer)
+            y = layer(x, self.middle_layer, draws)
             out = y if out is None else out + y
         return self.last_layer(out)

@@ -3,11 +3,14 @@ non-decode part of ``megatts2_tpu/nn/transformer.py``).
 
 * MultiHeadAttention: q/k/v Linear with bias, optional cross-attention
   through ``kv=``, scaled dot-product attention with an fp32 softmax, then
-  the output projection.  With ``k_lens`` given (self-attention only) it
-  takes the masked flash attention of ``ops/attention.py``.
+  the output projection and train-mode dropout.  With ``k_lens`` given
+  (self-attention only) it takes the masked flash attention of
+  ``ops/attention.py``, through its autograd Function (kernels B with
+  statistics and C on the card) when autograd records.
 * TransformerEncoderLayer: pre-LN residual attention, then the conv FF
   Conv1d(k=5)-ReLU-Conv1d(k=5), where norm2 sits OUTSIDE the residual
-  (``x = norm2(x) + ff(norm2(x))``), as in the reference.  The JAX
+  (``x = norm2(x) + ff(norm2(x))``), as in the reference; the FF has no
+  dropout, as in JAX.  The JAX
   layer's linear-FF variant (the PLM's and ADM's layers) is
   ``models/fast_decode.DecoderLayer``, whose ``forward`` is the
   teacher-forced training forward and whose ``step`` is the decode.
@@ -15,7 +18,9 @@ non-decode part of ``megatts2_tpu/nn/transformer.py``).
   from lengths (padding, optionally causal), or, with ``use_flash``, passed
   to the kernel as lengths.
 
-The KV-cached decode lives in ``models/fast_decode.py``.
+Linear, LayerNorm and the convs compute in the dtype of their input
+(``nn/layers.py``); dropout masks come from ``draws`` (``nn/dropout.py``),
+``None`` in eval.  The KV-cached decode lives in ``models/fast_decode.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from torch import nn
 from ..ops.attention import flash_attention
 from ..ops.masks import causal_mask, make_attn_mask
 from .convnet import ChannelsLastConv1d
+from .dropout import Draws, dropout
+from .layers import LayerNorm, Linear
 
 
 def attend(
@@ -48,15 +55,16 @@ def attend(
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, qkv_dim: int, n_heads: int = 8):
+    def __init__(self, qkv_dim: int, n_heads: int = 8, dropout: float = 0.0):
         super().__init__()
         if qkv_dim % n_heads:
             raise ValueError(f"qkv_dim {qkv_dim} is not a multiple of n_heads {n_heads}")
         self.n_heads = n_heads
-        self.w_q = nn.Linear(qkv_dim, qkv_dim)
-        self.w_k = nn.Linear(qkv_dim, qkv_dim)
-        self.w_v = nn.Linear(qkv_dim, qkv_dim)
-        self.out_proj = nn.Linear(qkv_dim, qkv_dim)
+        self.dropout = dropout
+        self.w_q = Linear(qkv_dim, qkv_dim)
+        self.w_k = Linear(qkv_dim, qkv_dim)
+        self.w_v = Linear(qkv_dim, qkv_dim)
+        self.out_proj = Linear(qkv_dim, qkv_dim)
 
     def forward(
         self,
@@ -65,6 +73,7 @@ class MultiHeadAttention(nn.Module):
         mask: Optional[torch.Tensor] = None,
         k_lens: Optional[torch.Tensor] = None,  # (B,): flash path
         causal: bool = False,
+        draws: Optional[Draws] = None,
     ) -> torch.Tensor:
         B, Tq, D = q.shape
         src = q if kv is None else kv
@@ -76,15 +85,15 @@ class MultiHeadAttention(nn.Module):
             att = flash_attention(qh, kh, vh, k_lens, causal)
         else:
             att = attend(qh, kh, vh, mask)
-        return self.out_proj(att.reshape(B, Tq, D))
+        return dropout(self.out_proj(att.reshape(B, Tq, D)), self.dropout, draws)
 
 
 class TransformerEncoderLayer(nn.Module):
-    def __init__(self, dim: int, ff_dim: int, n_heads: int = 8):
+    def __init__(self, dim: int, ff_dim: int, n_heads: int = 8, dropout: float = 0.0):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadAttention(dim, n_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
+        self.attn = MultiHeadAttention(dim, n_heads, dropout)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.ff_conv1 = ChannelsLastConv1d(dim, ff_dim, 5, padding=2)
         self.ff_conv2 = ChannelsLastConv1d(ff_dim, dim, 5, padding=2)
 
@@ -94,8 +103,9 @@ class TransformerEncoderLayer(nn.Module):
         mask: Optional[torch.Tensor] = None,
         k_lens: Optional[torch.Tensor] = None,
         causal: bool = False,
+        draws: Optional[Draws] = None,
     ) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), mask=mask, k_lens=k_lens, causal=causal)
+        x = x + self.attn(self.norm1(x), mask=mask, k_lens=k_lens, causal=causal, draws=draws)
         h = self.norm2(x)
         return h + self.ff_conv2(F.relu(self.ff_conv1(h)))
 
@@ -103,12 +113,12 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(
         self, dim: int, ff_dim: int, num_layers: int, n_heads: int = 8,
-        use_flash: bool = False,
+        use_flash: bool = False, dropout: float = 0.0,
     ):
         super().__init__()
         self.use_flash = use_flash
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(dim, ff_dim, n_heads) for _ in range(num_layers)
+            TransformerEncoderLayer(dim, ff_dim, n_heads, dropout) for _ in range(num_layers)
         )
 
     def forward(
@@ -116,6 +126,7 @@ class TransformerEncoder(nn.Module):
         x: torch.Tensor,  # (B, T, D)
         x_lens: Optional[torch.Tensor] = None,  # (B,)
         causal: bool = False,
+        draws: Optional[Draws] = None,
     ) -> torch.Tensor:
         B, T = x.shape[0], x.shape[1]
         mask = k_lens = None
@@ -130,5 +141,5 @@ class TransformerEncoder(nn.Module):
             else:
                 mask = causal_mask(T, device=x.device)
         for layer in self.layers:
-            x = layer(x, mask=mask, k_lens=k_lens, causal=causal)
+            x = layer(x, mask=mask, k_lens=k_lens, causal=causal, draws=draws)
         return x

@@ -40,9 +40,10 @@ import torch
 from .masks import NEG_INF
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
-# bf16 head dims of kernel C's tensor-core path: 64 and 128, since no ported
-# path trains at head dim 256 (the MRTE trains under MegaG's GAN trainer,
-# not ported yet); kernel B's forward has the path at every head dim
+# bf16 head dims of kernel C's tensor-core path: 64 and 128.  At head dim 256
+# (the MRTE's phone encoder, trained by the GAN step with use_flash) kernel C
+# runs its SIMT path, a small share of that step (PERF.md §6); kernel B's
+# forward has the tensor-core path at every head dim
 TC_BWD_HEAD_DIMS = (64, 128)
 
 

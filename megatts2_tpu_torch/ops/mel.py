@@ -255,7 +255,9 @@ def mel_spectrogram_cuda(
     win_length: int = HIFIGAN_WIN_LENGTH,
     n_mels: int = HIFIGAN_MEL_CHANNELS,
 ) -> torch.Tensor:
-    """Kernel A (``csrc/mel.cu``): the same function in one launch."""
+    """Kernel A (``csrc/mel.cu``): the same function in one launch.  It has
+    no backward: on a signal that requires grad, with grad mode on, it
+    raises rather than return a mel that autograd would not follow."""
     if not signal.is_cuda:
         raise ValueError(f"mel_spectrogram_cuda takes a CUDA tensor, got {signal.device}")
     if signal.dtype != torch.float32:
@@ -269,6 +271,10 @@ def mel_spectrogram_cuda(
     n = signal.shape[-1]
     if n <= n_fft // 2:
         raise ValueError(f"reflect padding needs more than {n_fft // 2} samples, got {n}")
+    if signal.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "mel_spectrogram: kernel A has no backward yet, so a gradient through the mel of a "
+            "CUDA signal cannot be recorded; detach the signal or compute under torch.no_grad()")
     from ..csrc.build import check, load_library
 
     lib = load_library()

@@ -245,6 +245,25 @@ def test_autograd_at_head_dim_256_bf16_matches_the_cpu(cuda):
         _close_to_max(a, b, 2e-2, f"autograd bf16 Dh 256 {name}")
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kernel_at_the_mrte_shape_bf16(cuda, causal):
+    """The GAN step's phone encoder under ``use_flash``: (8, 64, 2, 256)
+    bf16 with mixed lengths, on kernel C's SIMT path (its tensor-core path
+    stops at head dim 128)."""
+    g = torch.Generator().manual_seed(10)
+    q, k, v, go = _qkv((8, 64, 2, 256), 4, g, cuda, torch.bfloat16)
+    lens = torch.tensor([64, 60, 33, 64, 1, 17, 64, 48], dtype=torch.int32, device=cuda)
+    _, m, l = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+    before, tc = tatt.flash_attention_bwd_cuda.launches, tatt.flash_attention_bwd_cuda.tc_launches
+    got = tatt.flash_attention_bwd_cuda(q, k, v, lens, causal, go, m, l)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_bwd_cuda.launches == before + 1
+    assert tatt.flash_attention_bwd_cuda.tc_launches == tc
+    want = tatt.flash_attention_bwd_plain(q, k, v, lens, causal, go, m, l)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_to_max(a, b, BWD_RTOL[torch.bfloat16], f"MRTE {name} causal={causal}")
+
+
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(1, 8, 2, 96, device=cuda)  # the ADM's head dim at tc_emb_dim=512
     st = torch.ones(1, 2, 8, device=cuda)
@@ -268,6 +287,35 @@ def test_mel_kernel_matches_plain(cuda, shape):
     ref = tmel.mel_spectrogram_plain(y)
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+
+
+def test_mel_kernel_refuses_to_record_a_gradient(cuda):
+    """Kernel A has no backward: where autograd would record through it
+    (a signal that requires grad, grad mode on) it raises, naming the
+    missing backward, rather than return a mel that cuts the graph."""
+    y = (torch.randn(2, 4000, generator=torch.Generator().manual_seed(7)) * 0.1).to(cuda)
+    y.requires_grad_()
+    before = tmel.mel_spectrogram_cuda.launches
+    for fn in (tmel.mel_spectrogram, tmel.mel_spectrogram_cuda):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(y)
+    assert tmel.mel_spectrogram_cuda.launches == before
+
+
+def test_mel_kernel_launches_without_grad(cuda):
+    """Under ``no_grad``, or on a detached signal, the kernel still runs."""
+    y = (torch.randn(2, 4000, generator=torch.Generator().manual_seed(8)) * 0.1).to(cuda)
+    y.requires_grad_()
+    before = tmel.mel_spectrogram_cuda.launches
+    with torch.no_grad():
+        a = tmel.mel_spectrogram(y)
+    b = tmel.mel_spectrogram(y.detach())
+    torch.cuda.synchronize()
+    assert tmel.mel_spectrogram_cuda.launches == before + 2
+    ref = tmel.mel_spectrogram_plain(y.detach())
+    for got in (a, b):
+        assert not got.requires_grad
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
 
 
 def test_mel_kernel_on_silence_hits_the_clamp(cuda):

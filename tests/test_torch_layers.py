@@ -87,14 +87,34 @@ def test_convnet_double_matches_jax(stride, T):
     from megatts2_tpu_torch.nn import ConvNetDouble
 
     args = dict(in_channels=10, out_channels=12, hidden_size=16, n_layers=2, n_stacks=2,
-                n_blocks=2, kernel_size=3, activation="ReLU", middle_stride=stride)
+                n_blocks=2, kernel_size=3, activation="ReLU", middle_kind="conv",
+                middle_stride=stride)
     x = np.random.RandomState(5).randn(2, T, 10).astype(np.float32)
-    jm = JCND(**args, middle_kind="conv")
+    jm = JCND(**args)
     params = _perturbed(jm.init(KEY, jnp.asarray(x))["params"], 6)
     ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
     m = load_flax_params(ConvNetDouble(**args), params)
     got = m(_t(x)).detach().numpy()
     assert got.shape == ref.shape == (2, -(-T // stride), 12)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("T", [45, 48, 3])
+def test_convnet_double_maxpool_matches_jax(T):
+    """The VQPE's middle: MaxPool1d(8, ceil_mode), whose last window takes
+    the frames left (JAX pads it with -inf); no weights of its own."""
+    from megatts2_tpu.nn import ConvNetDouble as JCND
+    from megatts2_tpu_torch.nn import ConvNetDouble
+
+    args = dict(in_channels=20, out_channels=8, hidden_size=16, n_layers=3, n_stacks=1,
+                n_blocks=2, kernel_size=5, activation="ReLU", middle_kind="maxpool",
+                middle_stride=8)
+    x = np.random.RandomState(11).randn(2, T, 20).astype(np.float32)
+    jm = JCND(**args)
+    params = _perturbed(jm.init(KEY, jnp.asarray(x))["params"], 12)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    got = load_flax_params(ConvNetDouble(**args), params)(_t(x)).detach().numpy()
+    assert got.shape == ref.shape == (2, -(-T // 8), 8)
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
 

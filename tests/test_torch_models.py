@@ -94,7 +94,7 @@ def test_codebook_decode_and_decode_latents_match_jax(megag):
     codes = rng.randint(0, 32, (2, 5)).astype(np.int32)
     ref_zq = np.asarray(jg.apply(g_vars, jnp.asarray(codes)[None],
                                  method=lambda m, c: m.vqpe.vq.decode(c)))
-    zq = g.vq.decode(torch.from_numpy(codes).long()[None])
+    zq = g.vqpe.vq.decode(torch.from_numpy(codes).long()[None])
     np.testing.assert_array_equal(zq.numpy(), ref_zq)
 
     tc = rng.randn(2, 37, 16).astype(np.float32)

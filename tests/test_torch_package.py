@@ -18,8 +18,8 @@ from megatts2_tpu_torch import config as tcfg
 from megatts2_tpu_torch.bridge import load_flax_params
 
 KEY = jax.random.PRNGKey(0)
-CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "MegaPLMConfig", "MegaADMConfig", "HiFiGANConfig",
-           "VocosConfig", "TrainConfig"]
+CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "DiscriminatorConfig", "MegaPLMConfig",
+           "MegaADMConfig", "HiFiGANConfig", "VocosConfig", "TrainConfig"]
 
 
 def _default(f):
@@ -74,9 +74,10 @@ def _torch_g(cfg):
 
 
 def test_bridge_consumes_every_leaf():
-    """Every flax leaf lands somewhere (the VQPE encoder is the one named
-    skip), every torch parameter and buffer is filled, values arrive with
-    the layout change (Dense kernel → weight.T)."""
+    """Every flax leaf lands somewhere (the VQPE encoder and its codebook
+    included), every torch parameter and buffer is filled, values arrive
+    with the layout change (Dense kernel → weight.T, Conv kernel (k, in,
+    out) → weight (out, in, k))."""
     cfg, tree = _g_vars()
     g = load_flax_params(_torch_g(cfg), tree)
     k = tree["params"]["mrte"]["phone_encoder"]["layers"]["attn"]["w_q"]["kernel"][0]
@@ -84,9 +85,12 @@ def test_bridge_consumes_every_leaf():
         g.mrte.phone_encoder.layers[0].attn.w_q.weight.detach().numpy(), k.T
     )
     np.testing.assert_array_equal(
-        g.vq.layers[0]._codebook.embed.numpy(),
+        g.vqpe.vq.layers[0]._codebook.embed.numpy(),
         tree["vq_stats"]["vqpe"]["vq"]["layers_0"]["_codebook"]["embed"],
     )
+    k = tree["params"]["vqpe"]["convnet"]["first_layer"]["kernel"]
+    np.testing.assert_array_equal(
+        g.vqpe.convnet.first_layer.weight.detach().numpy(), k.transpose(2, 1, 0))
 
 
 def test_bridge_refuses_unknown_and_missing_leaves():
