@@ -13,7 +13,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    statistics, kernel C (the attention backward) at the PLM's training
    shape (8, 1024, 16, 64) causal with mixed lengths that include 0, and
    at (2, 300, 4, 128) non-causal, and at the GAN step's MRTE shape (8, 64,
-   2, 256) bf16 on its SIMT path (timed beside its bound and SDPA's
+   2, 256) bf16 on its SIMT path (checked with lengths that include 0 and
+   1 and with every phone real; timed with every phone real, as
+   ``tools/profile_train.py``'s batch, beside its bound and SDPA's
    autograd backward); kernels B (with and without statistics)
    and C on their bf16 tensor-core path at its edges (Tq of 1, 32, 300 and
    1000 at head dim 64, (3, 77, 4, 128); at head dim 256, where only B has
@@ -75,7 +77,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
 10. GAN train — ``configs/config_gan.yaml``'s G and D at full width and
    depth, bf16 over fp32 masters, one synthetic batch of
    ``tools/profile_train.py``'s geometry (B=8, Tp=64, 512 timbre and 512
-   target frames, durations 1-8), through ``training.run_training`` for 6
+   target frames, durations 1-8, every phone real), through ``training.run_training`` for 6
    steps and an eval, twice: as shipped (plain attention; no attention
    kernel may launch) and with ``MRTEConfig(use_flash=True)`` (kernel B's
    counters and kernel C's set to 0 before and read after: B and its
@@ -115,7 +117,8 @@ SEED = 0
 PLM_B, PLM_L = 8, 1024  # tools/bench_train.py's PLM geometry
 GAN_B = 8  # tools/profile_train.py's GAN geometry: B=8, Tp=64, 512 timbre + 512 target frames
 PLM_LENS = [1024, 1024, 960, 800, 700, 512, 384, 100]  # mixed, as PLMBatchBuilder pads
-GAN_MRTE_LENS = [64, 60, 33, 64, 1, 17, 64, 48]  # phone lengths of a GAN batch, Tp 64
+GAN_TP = 64  # tools/profile_train.py: tokens_lens = Tp for every row
+MRTE_EDGE_LENS = [64, 0, 33, 63, 1, 17, 64, 48]  # kernel C's check only: lengths 0, 1, partial tiles
 # H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and operations
 # per ms by type; a kernel's bound is the larger of bytes and operations
 HBM_BYTES_PER_MS = 3.35e9
@@ -420,16 +423,21 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                   f"stats m {em:.3g} (atol {ATOL_M}), l rel {el:.3g} (rtol {RTOL_L})")
     torch.cuda.synchronize()
     # kernel C at the MRTE's shape, where the GAN step with use_flash runs
-    # it: (8, 64, 2, 256) bf16, mixed lengths, on its SIMT path
+    # it: (8, 64, 2, 256) bf16 on its SIMT path; checked with edge lengths
+    # and with every phone real, then timed with every phone real
     q, k, v, g = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
-    lens = torch.tensor(GAN_MRTE_LENS, dtype=torch.int32, device=dev)
-    _, m, l = att.flash_attention_cuda(q, k, v, lens, return_stats=True)
-    tc0 = att.flash_attention_bwd_cuda.tc_launches
-    got = att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l)
-    ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l))
-    check(att.flash_attention_bwd_cuda.tc_launches == tc0, "kernel C took the tensor cores at Dh 256")
-    check(all(a <= REL_BWD[torch.bfloat16] * t for a, t in ge), f"flash bwd MRTE: {ge}")
-    err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+    for lens_list in (MRTE_EDGE_LENS, [GAN_TP] * 8):
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        _, m, l = att.flash_attention_cuda(q, k, v, lens, return_stats=True)
+        tc0 = att.flash_attention_bwd_cuda.tc_launches
+        got = att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l)
+        ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l))
+        check(att.flash_attention_bwd_cuda.tc_launches == tc0, "kernel C took the tensor cores at Dh 256")
+        check(all(a <= REL_BWD[torch.bfloat16] * t for a, t in ge), f"flash bwd MRTE {lens_list}: {ge}")
+        err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+        print(f"kernel flash_attention_bwd (8, 64, 2, 256) bf16 simt, lens {lens_list}: max_abs_err/max "
+              f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))} "
+              f"(rel {REL_BWD[torch.bfloat16]})")
     t_bwd_mrte = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l),
                           lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l))
     split_bwd_mrte = kernel_times.time_cases({"flash_bwd_mrte": (
@@ -440,12 +448,9 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     gt = g.transpose(1, 2)
     lib_bwd_mrte = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
     del out, qt, kt, vt
-    pairs = attn_pairs(GAN_MRTE_LENS, 64, 2, False)
+    pairs = attn_pairs([GAN_TP] * 8, 64, 2, False)
     bound_bwd_mrte = bound(7 * q.numel() * 2 + 2 * m.numel() * 4, 10 * 256 * pairs, "bf16")
-    print(f"kernel flash_attention_bwd (8, 64, 2, 256) bf16 simt, lens {GAN_MRTE_LENS}: max_abs_err/max "
-          f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))} "
-          f"(rel {REL_BWD[torch.bfloat16]})")
-    print(f"time flash_attention_bwd (8,64,2,256) bf16 simt (the GAN step's MRTE): kernel "
+    print(f"time flash_attention_bwd (8,64,2,256) bf16 simt (the GAN step's MRTE, every phone real): kernel "
           f"{t_bwd_mrte[0]:.4f} ms, plain {t_bwd_mrte[1]:.4f} ms, library (SDPA autograd backward) "
           f"{lib_bwd_mrte:.4f} ms, bound {bound_bwd_mrte[0]:.5f} ms by {bound_bwd_mrte[1]} "
           f"({10 * 256 * pairs / 1e9:.4f} GFLOP) [{card}]")
@@ -1030,17 +1035,18 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
     return launches
 
 
-def _gan_batch(B: int, Tp: int, Tt: int, Tm: int, vocab: int, seed: int) -> dict:
-    """A GAN batch in GANBatchBuilder's format (``tools/profile_train.py``'s
-    geometry at full size): durations 1-8, mixed phone lengths, fp32 mels."""
+def _gan_batch(tokens_lens: list, Tp: int, Tt: int, mel_target_lens: list, Tm: int, vocab: int,
+               seed: int) -> dict:
+    """A GAN batch in GANBatchBuilder's format, as ``tools/profile_train.py``
+    builds it: durations 1-8, fp32 mels; the lengths are the caller's."""
     rng = np.random.RandomState(seed)
-    lens = np.asarray((GAN_MRTE_LENS * B)[:B] if Tp == 64 else [Tp] * B, np.int32)
+    B = len(tokens_lens)
     return {"duration_tokens": rng.randint(1, 9, (B, Tp)).astype(np.int32),
             "phone_tokens": rng.randint(0, vocab, (B, Tp)).astype(np.int32),
-            "tokens_lens": lens,
+            "tokens_lens": np.asarray(tokens_lens, np.int32),
             "mel_timbres": rng.randn(B, Tt, 80).astype(np.float32),
             "mel_targets": rng.randn(B, Tm, 80).astype(np.float32),
-            "mel_target_lens": np.full((B,), Tm, np.int32)}
+            "mel_target_lens": np.asarray(mel_target_lens, np.int32)}
 
 
 # parameters whose true gradient is 0 (softmax's shift invariance for the
@@ -1056,8 +1062,6 @@ def phase_gan_reference(dev: torch.device) -> None:
     masks, codebook samples and window starts replayed on the card.  The
     first step has lr 0 (warmup 1), so its gradients are the initial
     weights'."""
-    import dataclasses
-
     from megatts2_tpu_torch import config as c
     from megatts2_tpu_torch.nn import Draws
     from megatts2_tpu_torch.ops import attention as att
@@ -1074,9 +1078,7 @@ def phase_gan_reference(dev: torch.device) -> None:
     lr = 1e-3
     tcfg = c.TrainConfig(warmup_steps=1, initial_learning_rate=lr, train_dtype="float32",
                          max_steps=100)
-    batch = _gan_batch(3, 12, 48, 64, 40, SEED + 8)
-    batch["tokens_lens"] = np.array([12, 7, 3], np.int32)
-    batch["mel_target_lens"] = np.array([40, 12, 30], np.int32)
+    batch = _gan_batch([12, 7, 3], 12, 48, [40, 12, 30], 64, 40, SEED + 8)
     out, recorded = {}, None
     for d in (torch.device("cpu"), dev):
         st = create_gan_state(g_cfg, d_cfg, tcfg, device=d)
@@ -1135,8 +1137,6 @@ def phase_gan_train(dev: torch.device, card: str, root: str) -> dict:
     ``tools/profile_train.py``'s geometry, as shipped (plain attention) and
     with ``use_flash`` (kernel B's and C's counters set to 0 just before
     and read just after)."""
-    import dataclasses
-
     from megatts2_tpu_torch import config as c
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.tools.kernel_times import trace_kernels
@@ -1144,7 +1144,7 @@ def phase_gan_train(dev: torch.device, card: str, root: str) -> dict:
                                              make_gan_train_step, run_training)
 
     d_cfg, tcfg = c.DiscriminatorConfig(), c.TrainConfig(train_dtype="bfloat16")
-    batch = _gan_batch(GAN_B, 64, 512, 512, 320, SEED + 9)
+    batch = _gan_batch([GAN_TP] * GAN_B, GAN_TP, 512, [512] * GAN_B, 512, 320, SEED + 9)
     res = {}
     for label, flash in (("as shipped, plain attention", False), ("use_flash", True)):
         g_cfg = c.MegaGConfig(mrte=c.MRTEConfig(use_flash=flash))

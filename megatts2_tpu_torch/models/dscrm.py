@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DiscriminatorConfig
-from ..nn import Draws, Linear, dropout, train_draws
+from ..nn import Draws, Linear, dropout, in_dtype, product_then_bias, train_draws
 
 
 EPSILON, MOMENTUM = 0.8, 0.9  # the reference's BatchNorm (see the module docstring)
@@ -81,9 +81,9 @@ class SingleWindowDisc(nn.Module):
         """x (B, T, F, C) → (validity (B, 1), the three blocks' outputs)."""
         h = []
         for i, conv in enumerate(self.conv):
-            bias = None if conv.bias is None else conv.bias.to(x.dtype)
-            x = conv._conv_forward(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias)
-            x = F.leaky_relu(x.permute(0, 2, 3, 1), 0.2)
+            x = product_then_bias(x, conv.weight, conv.bias, lambda w, b: conv._conv_forward(
+                x.permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1))
+            x = F.leaky_relu(x, in_dtype(0.2, x.dtype))
             x = dropout(x, 0.25, draws, broadcast_dims=(1, 2))
             if i < 2:
                 x = self.bn[i](x, train=draws is not None)
@@ -121,6 +121,9 @@ class Discriminator(nn.Module):
             s = min(max(int(s), 0), T - wl)
             v, h = disc(x[:, s : s + wl], draws)
             if max_true_len is not None and wl > max_true_len:
+                # a select, not zeros_like: v stays in the graph with a zero
+                # gradient, so AdamW still steps and decays this window's
+                # weights as optax does (a grad of None makes it skip them)
                 v = torch.where(torch.zeros((), dtype=torch.bool, device=v.device), v, 0.0)
             validity = v if validity is None else validity + v
             hiddens.extend(h)

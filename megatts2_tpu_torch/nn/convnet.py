@@ -2,7 +2,7 @@
 
 Public layout is (B, T, C) channels-last, as in JAX; each convolution
 transposes to PyTorch's (B, C, T) around ``conv1d`` and back, with its
-weight and bias cast to the input's dtype.
+weight and bias cast to the input's dtype (``layers.product_then_bias``).
 * ConvBlock   = activation → dropout(0.1, train only) → Conv1d(same pad)
   → LayerNorm(channels)
 * ResidualBlockStack = n_stacks × (x = x + ConvStack(x))
@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .dropout import Draws, dropout
-from .layers import LayerNorm
+from .dropout import Draws, dropout, in_dtype
+from .layers import LayerNorm, product_then_bias
 
 CONV_DROPOUT = 0.1  # fixed in the reference's ConvBlock
 
@@ -33,7 +33,7 @@ _ACTS: dict[str, Callable] = {
     "GELU": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
     "SiLU": F.silu,
     "Tanh": torch.tanh,
-    "LeakyReLU": lambda x: F.leaky_relu(x, 0.01),
+    "LeakyReLU": lambda x: F.leaky_relu(x, in_dtype(0.01, x.dtype)),
 }
 
 
@@ -45,8 +45,9 @@ class ChannelsLastConv1d(nn.Conv1d):
     """``nn.Conv1d`` on (B, T, C) input and output, computing in x's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x.transpose(1, 2), self.weight.to(x.dtype), bias).transpose(1, 2)
+        return product_then_bias(
+            x, self.weight, self.bias,
+            lambda w, b: self._conv_forward(x.transpose(1, 2), w, b).transpose(1, 2))
 
 
 def same_conv(c_in: int, c_out: int, kernel_size: int) -> ChannelsLastConv1d:

@@ -10,6 +10,7 @@ recorded and replayed on another.  A module in train mode takes a
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -88,13 +89,23 @@ def train_draws(train: bool, draws: Optional[Draws]) -> Optional[Draws]:
     return draws
 
 
+@functools.lru_cache(maxsize=None)
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: JAX rounds a Python float to the dtype
+    of the array it meets (0.9 is 0.8984375 in bf16), while torch computes
+    a bf16 op with the scalar in fp32."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def dropout(x: torch.Tensor, rate: float, draws: Optional[Draws],
             broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
     """flax ``nn.Dropout(rate, broadcast_dims)``: the identity without
     ``draws`` (eval) or at rate 0; else keep with probability 1 - rate,
-    scaled by its inverse, one mask value shared along ``broadcast_dims``."""
+    scaled by its inverse, one mask value shared along ``broadcast_dims``.
+    The keep probability is rounded to x's dtype first, as JAX rounds the
+    Python float it divides by (:func:`in_dtype`)."""
     if draws is None or rate == 0.0:
         return x
     shape = [1 if i in broadcast_dims else n for i, n in enumerate(x.shape)]
     keep = draws.keep_mask(shape, rate, x.device)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.where(keep, x / in_dtype(1.0 - rate, x.dtype), torch.zeros((), dtype=x.dtype, device=x.device))

@@ -14,10 +14,11 @@ by kmeans on the first training batch, as the JAX default
 rows that seed kmeans and replace expired codes come from a ``Draws``
 (``nn/dropout.py``): drawn from a generator, or injected.
 
-``fixed_expiry=True`` (the JAX default) also refreshes ``embed_avg`` and
-``cluster_size`` of an expired code so that the replacement survives the
-EMA renormalisation; ``False`` reproduces the reference, whose expiry the
-same step's ``embed = embed_avg / cluster_size`` overwrites.
+``EuclideanCodebook(fixed_expiry=True)`` (the JAX default, and what the
+models use) also refreshes ``embed_avg`` and ``cluster_size`` of an
+expired code so that the replacement survives the EMA renormalisation;
+``False`` reproduces the reference, whose expiry the same step's
+``embed = embed_avg / cluster_size`` overwrites.
 """
 from __future__ import annotations
 
@@ -110,9 +111,9 @@ class VectorQuantization(nn.Module):
     """One codebook; in train mode the straight-through estimator and the
     commitment loss mean((sg(q) - x)^2)."""
 
-    def __init__(self, dim: int, codebook_size: int, fixed_expiry: bool = True):
+    def __init__(self, dim: int, codebook_size: int):
         super().__init__()
-        self._codebook = EuclideanCodebook(dim, codebook_size, fixed_expiry)
+        self._codebook = EuclideanCodebook(dim, codebook_size)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return self._codebook.encode(x)
@@ -134,11 +135,9 @@ class ResidualVectorQuantizer(nn.Module):
     (quantized, codes (n_q, ...), commit loss summed over codebooks);
     ``encode`` → codes; ``decode`` sums the lookups of codes (n_q, ...)."""
 
-    def __init__(self, dimension: int = 256, n_q: int = 1, bins: int = 1024,
-                 fixed_expiry: bool = True):
+    def __init__(self, dimension: int = 256, n_q: int = 1, bins: int = 1024):
         super().__init__()
-        self.layers = nn.ModuleList(
-            VectorQuantization(dimension, bins, fixed_expiry) for _ in range(n_q))
+        self.layers = nn.ModuleList(VectorQuantization(dimension, bins) for _ in range(n_q))
 
     def forward(self, x: torch.Tensor, train: bool = False, draws=None):
         out, residual = torch.zeros_like(x), x

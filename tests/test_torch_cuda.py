@@ -248,11 +248,11 @@ def test_autograd_at_head_dim_256_bf16_matches_the_cpu(cuda):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_kernel_at_the_mrte_shape_bf16(cuda, causal):
     """The GAN step's phone encoder under ``use_flash``: (8, 64, 2, 256)
-    bf16 with mixed lengths, on kernel C's SIMT path (its tensor-core path
-    stops at head dim 128)."""
+    bf16 with edge lengths (0, 1, partial tiles), on kernel C's SIMT path
+    (its tensor-core path stops at head dim 128)."""
     g = torch.Generator().manual_seed(10)
     q, k, v, go = _qkv((8, 64, 2, 256), 4, g, cuda, torch.bfloat16)
-    lens = torch.tensor([64, 60, 33, 64, 1, 17, 64, 48], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([64, 0, 33, 63, 1, 17, 64, 48], dtype=torch.int32, device=cuda)
     _, m, l = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
     before, tc = tatt.flash_attention_bwd_cuda.launches, tatt.flash_attention_bwd_cuda.tc_launches
     got = tatt.flash_attention_bwd_cuda(q, k, v, lens, causal, go, m, l)

@@ -296,11 +296,15 @@ def _jax_starts(rng, batch, d_cfg):
             for r, wl in zip(rngs, d_cfg.time_lengths)]
 
 
-def _jax_gan_run(g_cfg, d_cfg, jtc, batch, n_steps, monkeypatch):
-    """(initial state, final state, metrics per step, draws) of the JAX step."""
+def _jax_gan_run(g_cfg, d_cfg, jtc, batch, n_steps, monkeypatch, perturb=False):
+    """(initial state, final state, metrics per step, draws) of the JAX step;
+    with ``perturb`` from perturbed G and D parameters (non-zero biases)."""
     from megatts2_tpu.training import create_gan_state, make_gan_train_step
 
     state, g_tx, d_tx = create_gan_state(KEY, g_cfg, d_cfg, jtc, batch)
+    if perturb:
+        state = state.replace(g_params=_perturbed(state.g_params, 1),
+                              d_params=_perturbed(state.d_params, 3))
     init = state
     step = make_gan_train_step(g_cfg, d_cfg, jtc, g_tx, d_tx)
     metrics, draws = [], {"masks": [], "indices": [], "starts": []}
@@ -473,13 +477,16 @@ def test_megag_train_flash_matches_jax_pallas(monkeypatch):
 
 def test_gan_step_bf16_close_to_jax(monkeypatch):
     """One step with ``train_dtype="bfloat16"``: JAX's flax ``dtype=`` casts
-    against the port's written-out ones (Dense and conv weights cast to
-    bf16, LayerNorm and BatchNorm statistics fp32, the codebook and the
-    losses fp32).  The two round in different places (XLA and torch CPU
-    kernels), so ŷ agrees to 2e-2 of its largest magnitude (one or two bf16
-    ulps; 0.9% seen) and the metrics to 5e-2 relative: the discriminator's
-    validities move by ~1% (bf16 rounding after each block), its LSGAN
-    losses, means of their squares, by up to 3%."""
+    against the port's written-out ones (Dense and conv products rounded to
+    bf16 before their bias is added, LayerNorm and BatchNorm statistics
+    fp32, Python scalars rounded to bf16 as JAX rounds them, the codebook
+    and the losses fp32), from perturbed weights, so that no bias is zero
+    and no bias add exact.  The casts sit where JAX's do, so ŷ is bit-equal
+    on the CPU (held to 1e-3 of its largest magnitude, a quarter of one
+    bf16 ulp there) and the metrics agree to 4e-7 relative (held to 1e-5:
+    fp32 sums in another order).  The control, the same step at fp32 on
+    the same draws, must miss both limits: it misses JAX's bf16 rounding,
+    8e-3 of ŷ's largest magnitude and up to 4e-3 of a metric."""
     from megatts2_tpu.config import TrainConfig
     from megatts2_tpu.models import MegaG as JMegaG
     from megatts2_tpu_torch.training import make_gan_train_step
@@ -487,25 +494,30 @@ def test_gan_step_bf16_close_to_jax(monkeypatch):
     batch = _batch()
     jtc = TrainConfig(max_steps=100, warmup_steps=1, initial_learning_rate=LR,
                       train_dtype="bfloat16")
-    init, _, jm, draws = _jax_gan_run(G_CFG, TINY_D, jtc, batch, 1, monkeypatch)
-    ttc = _torch_cfg(jtc)
-    st = _port_gan_state(G_CFG, TINY_D, ttc, init)
-    st.draws = Draws(replay=draws)
-    m = make_gan_train_step(_torch_cfg(G_CFG), _torch_cfg(TINY_D), ttc)(st, batch)
-    _consumed(st.draws, draws)
-    for k, v in jm[0].items():
-        np.testing.assert_allclose(float(m[k]), v, rtol=5e-2, atol=1e-6, err_msg=k)
+    init, _, jm, draws = _jax_gan_run(G_CFG, TINY_D, jtc, batch, 1, monkeypatch, perturb=True)
+    gaps = {}
+    for dtype in ("bfloat16", "float32"):
+        ttc = dataclasses.replace(_torch_cfg(jtc), train_dtype=dtype)
+        st = _port_gan_state(G_CFG, TINY_D, ttc, init)
+        st.draws = Draws(replay=draws)
+        m = make_gan_train_step(_torch_cfg(G_CFG), _torch_cfg(TINY_D), ttc)(st, batch)
+        _consumed(st.draws, draws)
+        gaps[dtype] = {k: abs(float(m[k]) - v) / max(abs(v), 1e-6) for k, v in jm[0].items()}
+    assert max(gaps["bfloat16"].values()) <= 1e-5, gaps["bfloat16"]
+    assert max(gaps["float32"].values()) > 1e-4, gaps["float32"]
 
     g_vars = {"params": _np(init.g_params), "vq_stats": _np(init.vq_stats)}
     with record_jax_draws(monkeypatch) as rec:
         (ref, _, _), _ = JMegaG(G_CFG, dtype=jnp.bfloat16).apply(
             g_vars, *_g_args(batch), train=True, rngs={"dropout": KEY, "vq": KEY},
             mutable=["vq_stats"])
-    g = _port_g(G_CFG, g_vars)
-    a = _t_args(batch)
-    got, _, _ = g(a[0].long(), a[1].long(), *a[2:], train=True, draws=Draws(replay=rec),
-                  dtype=torch.bfloat16)
-    assert got.dtype == torch.bfloat16
     ref = np.asarray(ref, np.float32)
-    np.testing.assert_allclose(got.float().detach().numpy(), ref, rtol=0,
-                               atol=2e-2 * np.abs(ref).max())
+    a = _t_args(batch)
+    y_gap = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        got, _, _ = _port_g(G_CFG, g_vars)(a[0].long(), a[1].long(), *a[2:], train=True,
+                                           draws=Draws(replay=rec), dtype=dtype)
+        assert got.dtype == dtype
+        y_gap[dtype] = np.abs(got.float().detach().numpy() - ref).max() / np.abs(ref).max()
+    assert y_gap[torch.bfloat16] <= 1e-3, y_gap
+    assert y_gap[torch.float32] > 4e-3, y_gap
