@@ -24,13 +24,17 @@ Phases, each printing a line; any failure raises and exits non-zero:
    not), each line beside the SIMT path's error on the same inputs, and on
    views off TMA's 16-byte rule (copied and counted); kernel D (the copy
    pump) at (3, 16, 256) and the tool's (144, 256, 4096) for 1, 2 and 16
-   passes, both outputs exact; then kernel and plain timed in turns
+   passes, both outputs exact; kernel A's backward against autograd through
+   the plain mel at the vocoder trainer's (8, 16384) (through the trainer's
+   [:, :64] slice and without), (1, 513), (3, 777) and (8, 131000); then kernel and plain timed in turns
    (plain, kernel, kernel, plain) with CUDA events, each beside its bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    peak rate of their type) and one PyTorch library call that computes the
    same function; kernels A and B at the synthesis shapes also split into
    device us (``torch.profiler``) and the host's issue us a call
-   (``tools/kernel_times.py``'s cases), with what kernel B's tensor-core
+   (``tools/kernel_times.py``'s cases, kernel A's backward at (8, 16384)
+   too, beside the autograd backward of ``torch.stft`` + filterbank + log),
+   with what kernel B's tensor-core
    wrapper adds to the host's cost; the attention kernels also beside their
    SIMT path, with the achieved TFLOP/s, the backward's two passes from a
    ``torch.profiler`` trace, and each tensor-core kernel's HGMMA count
@@ -85,6 +89,20 @@ Phases, each printing a line; any failure raises and exits non-zero:
    Losses finite, the codebook alive after the kmeans init, the eval
    ``loss_re`` finite; then each run's warm step ms, peak device memory
    and a ``torch.profiler`` breakdown of a warm step by kernel group.
+11. vocoder reference — a small fp32 Vocos G and wave D take 3 vocoder
+   GAN steps on the card (kernel A's forward and backward) and 3 on the
+   CPU (plain) from the same seeded weights, then one small HiFi-GAN step
+   the same way: metrics, first gradients and final parameters close; both
+   of kernel A's counters must rise.
+12. vocoder train — ``configs/config_vocoder.yaml`` as shipped (Vocos dim
+   512, 8 layers; MPD periods 2-11 + 3 MSD scales; bf16 over fp32
+   masters), written out as dataclass values, on ``tools/profile_train.py``'s
+   batch (B=8, 64 frames: 16384 samples a row of ``RandomState(0).randn``),
+   through ``training.run_training`` for 6 steps and an eval.  Kernel A's
+   forward and backward counters are set to 0 just before and must be > 0
+   after; losses finite.  Then the warm step ms, peak device memory and a
+   ``torch.profiler`` breakdown of a warm step by kernel group (conv,
+   matmul, FFT, kernel A, other) with the idle share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -113,8 +131,12 @@ ATOL_M, RTOL_L = 1e-4, 1e-5  # kernel B's row max and row sum: fp32 sums in anot
 # another order; in bf16, P and ds are rounded before their products, and a
 # rounding that flips moves a term by one bf16 ulp (2^-8)
 REL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# kernel A's backward, as a fraction of the gradient's largest magnitude:
+# the FFTs and sums in other orders, log's 1/mel amplifying where a mel is small
+REL_MEL_BWD = 1e-4
 SEED = 0
 PLM_B, PLM_L = 8, 1024  # tools/bench_train.py's PLM geometry
+VOC_B = 8  # tools/profile_train.py's vocoder geometry: B=8, segment_frames 64
 GAN_B = 8  # tools/profile_train.py's GAN geometry: B=8, Tp=64, 512 timbre + 512 target frames
 PLM_LENS = [1024, 1024, 960, 800, 700, 512, 384, 100]  # mixed, as PLMBatchBuilder pads
 GAN_TP = 64  # tools/profile_train.py: tokens_lens = Tp for every row
@@ -336,6 +358,27 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         check(got.shape == ref.shape and e <= ATOL_MEL, f"mel {shape}: err {e}")
         err["mel"] = max(err["mel"], e)
         print(f"kernel mel_spectrogram {shape}: max_abs_err {e:.3g} (atol {ATOL_MEL})")
+    # kernel A's backward: the vocoder trainer's crops, through its [:, :64]
+    # slice (autograd, the Function on the card) and whole; the shortest
+    # signal; ragged rows; the batched front end
+    err["mel_bwd"] = 0.0
+    for shape, keep in (((8, 16384), 64), ((8, 16384), None), ((1, 513), None), ((3, 777), None),
+                        ((8, 131000), None)):
+        y = (torch.randn(shape, generator=gen) * 0.1).to(dev)
+        g_mel = torch.randn(shape[0], mel.num_frames(shape[-1]), 80, generator=gen).to(dev)
+        if keep is None:
+            got = mel.mel_spectrogram_bwd_cuda(y, g_mel)
+        else:
+            g_mel[:, keep:] = 0  # what the slice's backward hands on
+            yr = y.clone().requires_grad_()
+            got = torch.autograd.grad(mel.mel_spectrogram(yr)[:, :keep], yr, g_mel[:, :keep])[0]
+        ref = mel.mel_spectrogram_bwd_plain(y, g_mel)
+        e, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        check(bool(torch.isfinite(got).all()) and e <= REL_MEL_BWD * top,
+              f"mel bwd {shape} keep {keep}: err {e}, max {top}")
+        err["mel_bwd"] = max(err["mel_bwd"], e)
+        print(f"kernel mel_spectrogram_bwd {shape}{f' [:, :{keep}]' if keep else ''}: max_abs_err "
+              f"{e:.3g} of max {top:.3g} (rel {REL_MEL_BWD})")
     torch.cuda.synchronize()
 
     # timing at the slice's shapes (tools/kernel_times.py's inputs): MRTE
@@ -578,9 +621,35 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     print(f"time mel_spectrogram (64001,) fp32: kernel {t_mel_prompt[0]:.4f} ms, plain "
           f"{t_mel_prompt[1]:.4f} ms, library {lib['mel_prompt']:.4f} ms, bound "
           f"{bounds['mel_prompt'][0]:.5f} ms by {bounds['mel_prompt'][1]} [{card}]")
+    # kernel A's backward at the vocoder trainer's (8, 16384); the plain
+    # version runs the plain forward and its autograd, as the kernel
+    # recomputes the forward; the library, the autograd backward alone of
+    # torch.stft + filterbank matmul + log over its saved graph
+    yb, gb = x["mel_bwd"]
+    t_mel_bwd = in_turns(lambda: mel.mel_spectrogram_bwd_plain(yb, gb),
+                         lambda: mel.mel_spectrogram_bwd_cuda(yb, gb))
+    yl = yb.detach().clone().requires_grad_()
+    ml = mel_library(yl)
+    lib["mel_bwd"] = cuda_ms(lambda: torch.autograd.grad(ml, yl, gb, retain_graph=True))
+    del ml, yl
+    # per frame: two real 1024-point FFTs, |X|, the filterbank forward and by
+    # bin (2 a nonzero each), the mels' division, G (6 a bin), the window;
+    # per sample the overlap-add (<= 4 frames, 3 adds)
+    fr_b = gb.shape[0] * gb.shape[1]
+    bwd_ops = fr_b * (2 * 2.5 * 1024 * 10 + 3 * 513 + 4 * nnz + 80 + 6 * 513 + 1024) + 3 * yb.numel()
+    bounds["mel_bwd"] = bound(2 * yb.numel() * 4 + gb.numel() * 4, bwd_ops, "fp32")
+    sp = split["mel_bwd"]
+    dev_us = "not measured" if sp["device_us"] is None else f"{sp['device_us']:.2f} us"
+    print(f"time mel_spectrogram_bwd (8,16384) fp32: kernel {t_mel_bwd[0]:.4f} ms, plain "
+          f"{t_mel_bwd[1]:.4f} ms, library (torch.stft + matmul + log, autograd backward) "
+          f"{lib['mel_bwd']:.4f} ms, bound {bounds['mel_bwd'][0]:.5f} ms by {bounds['mel_bwd'][1]} "
+          f"({bwd_ops / 1e6:.1f} MFLOP, {(2 * yb.numel() + gb.numel()) * 4 / 1e6:.2f} MB) [{card}]")
+    print(f"time split mel_spectrogram_bwd (8,16384) fp32: event {sp['event_ms']:.4f} ms, device "
+          f"{dev_us} (torch.profiler, both launches), host issue {sp['host_us']:.2f} us a call "
+          f"[{card}]")
     return {"err": err, "lib": lib, "bound": bounds, "simt": simt, "tflops": tflops, "split": split,
             "ms": {"flash": t_att, "mel": t_mel, "pump": t_pump, "flash_bwd_mrte": t_bwd_mrte,
-                   "mel_prompt": t_mel_prompt, **times}}
+                   "mel_prompt": t_mel_prompt, "mel_bwd": t_mel_bwd, **times}}
 
 
 def _configs(full: bool):
@@ -1122,8 +1191,12 @@ def phase_gan_reference(dev: torch.device) -> None:
 
 
 def _group(name: str) -> str:
+    if "mel_kernel" in name or "mel_bwd" in name:
+        return "kernel A"
     if "flash_" in name:
         return "attention B, C"
+    if re.search(r"fft", name, re.I):
+        return "fft"
     if re.search(r"conv|cudnn|fprop|dgrad|wgrad|implicit", name, re.I):
         return "conv"
     if re.search(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", name):
@@ -1193,7 +1266,7 @@ def phase_gan_train(dev: torch.device, card: str, root: str) -> dict:
         kernels = trace_kernels(lambda: step(st, batch))
         groups = dict.fromkeys(("conv", "matmul", "attention B, C", "other"), 0.0)
         for kname, t in kernels.items():
-            groups[_group(kname)] += t
+            groups[_group(kname)] = groups.get(_group(kname), 0.0) + t
         busy = sum(groups.values())
         top = [(kname[:48], round(t, 3)) for kname, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]]
         print(f"gan {label}: warm step {ms:.2f} ms (B={GAN_B}, 512 + 512 frames), peak device memory "
@@ -1207,6 +1280,124 @@ def phase_gan_train(dev: torch.device, card: str, root: str) -> dict:
     print(f"gan: warm step ms, plain attention {res[False]['ms']:.2f}, use_flash {res[True]['ms']:.2f} "
           f"[{card}]")
     return res[True]["launches"]
+
+
+def _vocoder_batch(B: int, frames: int, seed: int) -> dict:
+    """``tools/profile_train.py``'s vocoder batch: ``randn`` crops of frames · 256 samples."""
+    return {"wav": np.random.RandomState(seed).randn(B, frames * 256).astype(np.float32)}
+
+
+def phase_vocoder_reference(dev: torch.device) -> None:
+    """Small fp32 vocoder GAN steps on the card (kernel A's forward and
+    backward) and on the CPU (plain) from the same seeded weights: 3 with a
+    Vocos G, then 1 with a HiFi-GAN G."""
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.ops import mel
+    from megatts2_tpu_torch.training import create_vocoder_state, make_vocoder_train_step
+
+    d_cfg = c.WaveDiscConfig(periods=(2, 3), msd_scales=2, mpd_base_ch=4, msd_base_ch=8, max_ch=16)
+    lr = 1e-3
+    tcfg = c.VocoderTrainConfig(initial_learning_rate=lr, segment_frames=8, train_dtype="float32")
+    batch = {"wav": 0.3 * _vocoder_batch(2, 8, SEED + 10)["wav"]}
+    for label, g_cfg, steps in (
+            ("Vocos", c.VocosConfig(dim=16, intermediate_dim=48, num_layers=2), 3),
+            ("HiFi-GAN", c.HiFiGANConfig(upsample_initial_channel=16, resblock_kernel_sizes=(3, 5),
+                                         resblock_dilation_sizes=((1, 3), (1, 2))), 1)):
+        runs = []
+        for d in (torch.device("cpu"), dev):
+            st = create_vocoder_state(g_cfg, d_cfg, tcfg, device=d)
+            step = make_vocoder_train_step(g_cfg, d_cfg, tcfg)
+            fwd, bwd = mel.mel_spectrogram_cuda.launches, mel.mel_spectrogram_bwd_cuda.launches
+            metrics = [{k: float(v) for k, v in step(st, batch).items()}]
+            grads = {f"{n}.{p}": q.grad.cpu() for n, m in (("g", st.g), ("d", st.d))
+                     for p, q in m.named_parameters()}
+            metrics += [{k: float(v) for k, v in step(st, batch).items()} for _ in range(steps - 1)]
+            launched = (mel.mel_spectrogram_cuda.launches - fwd, mel.mel_spectrogram_bwd_cuda.launches - bwd)
+            params = {f"{n}.{p}": q.detach().cpu() for n, m in (("g", st.g), ("d", st.d))
+                      for p, q in m.named_parameters()}
+            runs.append((metrics, grads, params, launched))
+            del st
+        (m0, g0, p0, _), (m1, g1, p1, launched) = runs
+        check(launched[0] > 0 and launched[1] > 0,
+              f"vocoder reference {label}: kernel A forward/backward not launched {launched}")
+        for a, b in zip(m1, m0):
+            check(all(np.isclose(a[k], b[k], rtol=1e-4, atol=1e-6) for k in b),
+                  f"vocoder reference {label}: metrics {a} vs {b}")
+        # gradients: fp32 sums in other orders (cuDNN, kernel A); parameters:
+        # Adam moves each by ~lr whatever its gradient's size, so 0.05 of two
+        # updates' movement
+        g_top = max(g.abs().max().item() for g in g0.values())
+        g_err = max((g1[n] - g).abs().max().item() for n, g in g0.items())
+        p_err = max((p1[n] - p).abs().max().item() for n, p in p0.items())
+        check(g_err <= 1e-4 * g_top, f"vocoder reference {label}: gradients err {g_err}, max {g_top}")
+        check(p_err <= 0.05 * 2 * lr, f"vocoder reference {label}: params err {p_err}")
+        print(f"vocoder reference fp32 small {label} G + wave D, card vs CPU, {steps} steps: metrics "
+              f"within rtol 1e-4 (G_loss_total {[round(m['G_loss_total'], 6) for m in m1]} vs "
+              f"{[round(m['G_loss_total'], 6) for m in m0]}); gradients max_abs_err {g_err:.3g} of max "
+              f"{g_top:.3g} (rel 1e-4); params {p_err:.3g} (atol {0.05 * 2 * lr:.3g}); kernel A "
+              f"launches fwd {launched[0]} bwd {launched[1]}")
+
+
+def phase_vocoder_train(dev: torch.device, card: str, root: str) -> dict:
+    """``configs/config_vocoder.yaml`` as shipped (its values are the
+    dataclasses' defaults: Vocos dim 512, intermediate 1536, 8 layers;
+    periods 2, 3, 5, 7, 11 and 3 scales; bf16; segment_frames 64) through
+    ``run_training`` for 6 steps and an eval, kernel A's counters set to 0
+    just before and read just after."""
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.ops import mel
+    from megatts2_tpu_torch.tools.kernel_times import trace_kernels
+    from megatts2_tpu_torch.training import (create_vocoder_state, make_vocoder_eval_step,
+                                             make_vocoder_train_step, run_training)
+
+    g_cfg, d_cfg, tcfg = c.VocosConfig(), c.WaveDiscConfig(), c.VocoderTrainConfig()
+    batch = _vocoder_batch(VOC_B, tcfg.segment_frames, 0)
+    t0 = time.perf_counter()
+    st = create_vocoder_state(g_cfg, d_cfg, tcfg, device=dev)
+    n_g = sum(p.numel() for p in st.g.parameters())
+    n_d = sum(p.numel() for p in st.d.parameters())
+    print(f"vocoder: full-width Vocos G {n_g} + MPD/MSD D {n_d} fp32 parameters, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    step, evaluate = make_vocoder_train_step(g_cfg, d_cfg, tcfg), make_vocoder_eval_step(g_cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mel.mel_spectrogram_cuda.launches = mel.mel_spectrogram_bwd_cuda.launches = 0
+    log_dir = os.path.join(root, "logs")
+    run_training("vocoder", st, step, lambda epoch: [batch], max_steps=6, log_dir=log_dir,
+                 log_every=1, val_every=6, eval_step=evaluate, valid_loader_factory=lambda epoch: [batch])
+    torch.cuda.synchronize()
+    launches = {"mel": mel.mel_spectrogram_cuda.launches, "mel_bwd": mel.mel_spectrogram_bwd_cuda.launches}
+    print(f"vocoder: kernel A launches on this path {launches} (6 steps: 2 forward and 1 backward "
+          f"each; the eval: 2 forward)")
+    check(launches["mel"] > 0 and launches["mel_bwd"] > 0,
+          f"vocoder: kernel A's forward or backward was not launched: {launches}")
+    with open(os.path.join(log_dir, "vocoder_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if "train/G_loss_total" in r]
+    val = [r["val/loss"] for r in rows if "val/loss" in r]
+    keys = [k for k in train[0] if k.startswith("train/") and k != "train/host_rss_gb"]
+    check(len(train) == 6 and all(np.isfinite(r[k]) for r in train for k in keys),
+          f"vocoder: metrics {train}")
+    check(len(val) == 1 and np.isfinite(val[0]), f"vocoder: eval loss {val}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"vocoder: G_loss_total {[round(r['train/G_loss_total'], 4) for r in train]}, D_loss_total "
+          f"{[round(r['train/D_loss_total'], 4) for r in train]}, G_loss_mel "
+          f"{[round(r['train/G_loss_mel'], 4) for r in train]}; eval mel L1 {val[0]:.4f}")
+    ms = _steps_ms(step, st, batch)
+    kernels = trace_kernels(lambda: step(st, batch))
+    groups = dict.fromkeys(("conv", "matmul", "fft", "kernel A", "other"), 0.0)
+    for kname, t in kernels.items():
+        groups[_group(kname)] = groups.get(_group(kname), 0.0) + t
+    busy = sum(groups.values())
+    top = [(kname[:48], round(t, 3)) for kname, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]]
+    print(f"vocoder: warm step {ms:.2f} ms (B={VOC_B}, {tcfg.segment_frames} frames, "
+          f"{VOC_B * tcfg.segment_frames * 256} samples), peak device memory {peak:.2f} GiB [{card}]")
+    print(f"vocoder: trace of a warm step (torch.profiler), device ms by kernel group "
+          f"{ {k: round(v, 3) for k, v in groups.items()} }, busy {busy:.2f} of {ms:.2f} ms "
+          f"({1 - busy / ms:.1%} idle), {len(kernels)} kernel names; top {top} [{card}]")
+    del st, step, evaluate
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -1223,6 +1414,8 @@ def main() -> None:
         train = phase_train(dev, card, root)
         phase_gan_reference(dev)
         gan = phase_gan_train(dev, card, root)
+        phase_vocoder_reference(dev)
+        vocoder = phase_vocoder_train(dev, card, root)
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
 
     def _ms(us):
@@ -1237,13 +1430,23 @@ def main() -> None:
                 "card": card, **extra}
 
     record = {"kernels": [
-        row("mel_spectrogram", "mel.cu", "megatts2_tpu/ops/mel.py:190", "mel", "mel", synth["mel"],
+        row("mel_spectrogram", "mel.cu", "megatts2_tpu/ops/mel.py:190", "mel", "mel",
+            synth["mel"] + vocoder["mel"],
             "(8, 131000) fp32", library="torch.stft + filterbank matmul + log (composite)",
-            launches_by_path={label: s["mel"] for label, s in slices.items()},
+            launches_by_path={**{label: s["mel"] for label, s in slices.items()},
+                              "vocoder": vocoder["mel"]},
             device_ms=_ms(k["split"]["mel"]["device_us"]), host_ms=k["split"]["mel"]["host_us"] / 1e3,
             device_ms_prompt=_ms(k["split"]["mel_prompt"]["device_us"]),
             ms_prompt=k["ms"]["mel_prompt"][0], plain_ms_prompt=k["ms"]["mel_prompt"][1],
             bound_ms_prompt=k["bound"]["mel_prompt"][0], library_ms_prompt=k["lib"]["mel_prompt"]),
+        row("mel_spectrogram_bwd", "mel.cu",
+            "megatts2_tpu/ops/mel.py:190 (no Pallas backward: JAX differentiates the jnp golden, "
+            "megatts2_tpu/ops/mel.py:121-132)", "mel_bwd", "mel_bwd", vocoder["mel_bwd"],
+            "(8, 16384) fp32, g_mel (8, 65, 80)",
+            library="autograd backward of torch.stft + filterbank matmul + log",
+            launches_by_path={"vocoder": vocoder["mel_bwd"]},
+            device_ms=_ms(k["split"]["mel_bwd"]["device_us"]),
+            host_ms=k["split"]["mel_bwd"]["host_us"] / 1e3),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
             "flash_plm", "flash", synth["flash"] + train["flash"] + gan["flash"],
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",

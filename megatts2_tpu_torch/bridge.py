@@ -6,15 +6,16 @@ arrays (or anything ``np.asarray`` reads) and fills ``module`` in place:
 * MegaG takes the generator's variables ``{"params": ..., "vq_stats": ...}``
   (the VQPE encoder and its codebook included), as does the
   VQProsodyEncoder alone; the Discriminator
-  ``{"params": ..., "batch_stats": ...}``; MegaPLM, MegaADM, HiFiGAN and
-  Vocos take their ``params``.
+  ``{"params": ..., "batch_stats": ...}``; MegaPLM, MegaADM, HiFiGAN,
+  Vocos and the vocoder's WaveDiscriminator take their ``params``.
 * Dense ``kernel`` (in, out) → Linear ``weight`` (out, in).
 * A ``quantize_tree`` leaf set ``{kernel_q, scale, bias}`` → the
   ``QuantLinear`` that ``quantize_`` put in the Linear's place:
   ``kernel_q`` (in, out) int8 or (in/2, out) packed uint8 → ``weight_q``
   (out, in) or (out, in/2); ``scale`` and ``bias`` by name, fp32.
-* Conv ``kernel`` (k, in/groups, out) → Conv1d ``weight`` (out, in/groups, k);
-  (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw).
+* Conv ``kernel`` (k, in/groups, out) → Conv1d ``weight`` (out, in/groups, k),
+  grouped or not; (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh, kw),
+  e.g. the period discriminators' (5, 1, in, out).
 * HiFi-GAN ``TransposedConv1d`` ``kernel`` (k, in, out), stored flipped along
   k (``training/convert.py``) → ConvTranspose1d ``weight`` (in, out, k) =
   ``kernel[::-1].transpose(1, 2, 0)``.

@@ -134,6 +134,40 @@ class VocosConfig:
 
 
 @dataclass(frozen=True)
+class WaveDiscConfig:
+    """The vocoder's waveform discriminators: one per period (MPD) and
+    ``msd_scales`` scales (MSD), HiFi-GAN's topology."""
+
+    periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+    msd_scales: int = 3
+    mpd_base_ch: int = 32
+    msd_base_ch: int = 128
+    max_ch: int = 1024
+    lrelu_slope: float = 0.1
+
+
+@dataclass(frozen=True)
+class VocoderTrainConfig:
+    """Vocoder GAN training knobs (HiFi-GAN's recipe).  ``train_dtype`` is
+    the compute dtype over fp32 master weights and optimizer state."""
+
+    initial_learning_rate: float = 2e-4
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    lr_decay: float = 0.999  # continuous exponential decay over lr_decay_steps
+    lr_decay_steps: int = 1000
+    max_steps: int = 400_000
+    segment_frames: int = 64  # training crop in mel frames (x hop samples)
+    mel_loss_coeff: float = 45.0
+    fm_loss_coeff: float = 2.0
+    train_dtype: str = "bfloat16"
+    log_every_n_steps: int = 100
+    val_check_interval: int = 1500
+    save_every_n_vals: int = 1
+    seed: int = 0
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """PLM, ADM and GAN training knobs.  ``train_dtype`` is the
     compute dtype over fp32 master weights and optimizer state."""

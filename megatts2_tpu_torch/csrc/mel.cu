@@ -35,6 +35,27 @@
 //    weight table laid out so a warp's reads at each step are consecutive.
 //  * fp32 throughout, no tensor cores: log(clamp) amplifies error near 1e-5,
 //    and TF32 or bf16 would lose the digits the tolerance needs.
+//
+// The backward (mt_mel_backward) has no Pallas counterpart: the JAX package
+// differentiates the jnp golden with XLA's autodiff.  Given g_mel (B, T,
+// n_mels) it returns g_sig (B, n) in two launches:
+//  * mel_bwd_frames_kernel, the same blocks as the forward: it recomputes
+//    the frame's spectrum X in registers (the forward's FFT again, so the
+//    forward saves nothing), the mels, g_lin = g_mel / mel where mel >=
+//    1e-5 (torch.clamp's convention: a tie passes the whole gradient),
+//    g_|X| through the filterbank by bin (ops/mel.py::bin_tasks: at most two
+//    mels a bin), G = g_|X| X / |X| (0 where |X| = 0), then the adjoint of
+//    the one-sided rfft, sum_k<=512 Re(G[k] e^{+2 pi i k n / 1024}): the
+//    even/odd split undone with conjugate twiddles into Zc (512 complex),
+//    and the forward's 512-point FFT run on conj(Zc); times the window, into
+//    a (B, T, 1024) scratch.
+//  * mel_bwd_gather_kernel, a thread a sample: it sums the <= 4 frames that
+//    cover its padded position and those of its reflected partners
+//    (ops/mel.py::fold_sources, frames_covering).  A gather, no atomics:
+//    the same bits on every run.
+// What bounds it: the same as the forward, twice the FFT work and the
+// scratch's round trip (8 KB a frame), all far under a microsecond at the
+// trainer's (8, 16384); at that size the launches and the host decide.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,22 +118,11 @@ __device__ __forceinline__ void dft8(float2 (&a)[8]) {
   a[7] = csub(dv, ev);
 }
 
-__global__ void __launch_bounds__(THREADS)
-mel_kernel(const float* __restrict__ sig, const float2* __restrict__ window2,
-           const float2* __restrict__ tw, const int4* __restrict__ tasks,
-           const float* __restrict__ weights, float* __restrict__ out, int n, int T,
-           int n_tasks) {
-  __shared__ __align__(16) float span[SPAN];
-  __shared__ float2 xa[FRAMES][XA];
-  __shared__ float2 xb[FRAMES][XB];
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * FRAMES;
-  const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
-  const float* s = sig + static_cast<size_t>(b) * n;
-
-  // the span: frame t0 + f reads span[f HOP, f HOP + NFFT), signal samples
-  // from (t0 + f) HOP - NC; past the last frame the span stays 0
+// The block's signal span into shared memory: frame t0 + f reads span[f HOP,
+// f HOP + NFFT), signal samples from (t0 + f) HOP - NC; past the last frame
+// the span stays 0.
+__device__ __forceinline__ void load_span(const float* __restrict__ s, float* span, int t0, int T,
+                                          int n) {
   const int len = (min(FRAMES, T - t0) - 1) * HOP + NFFT;
   const int s0 = t0 * HOP - NC;  // a multiple of 4, like every i below
   const bool vec = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
@@ -128,30 +138,37 @@ mel_kernel(const float* __restrict__ sig, const float2* __restrict__ window2,
     }
     *reinterpret_cast<float4*>(span + i) = v;
   }
-  __syncthreads();
+}
 
-  // pass 1: z[t + 64 r] = x[m] + i x[m + 1], m = 2 (t + 64 r), windowed
-  float2 a[8];
-  const float* fs = span + f * HOP;
+// Pass 1's input: z[t + 64 r] = x[m] + i x[m + 1], m = 2 (t + 64 r), windowed.
+__device__ __forceinline__ void load_frame(const float* fs, const float2* __restrict__ window2,
+                                           int t, float2 (&a)[8]) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const float2 x = *reinterpret_cast<const float2*>(fs + 2 * (t + 64 * r));
     const float2 w = window2[t + 64 * r];
     a[r] = make_float2(x.x * w.x, x.y * w.y);
   }
+}
+
+// The 512-point complex FFT of a frame, thread t holding a[r] = z[t + 64 r]:
+// Z[k] ends in xa at zpos(k).  Every thread of the block calls it (it
+// synchronises twice); the caller synchronises before reading xa.
+__device__ __forceinline__ void fft512(float2 (&a)[8], float2* xa, float2* xb,
+                                       const float2* __restrict__ tw, int t) {
   dft8(a);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) xa[f][r * ROW + t] = cmul(a[r], tw[TW1 + r * TPF + t]);
+  for (int r = 0; r < 8; ++r) xa[r * ROW + t] = cmul(a[r], tw[TW1 + r * TPF + t]);
   __syncthreads();
 
   // pass 2: thread (k1, m2) = (t >> 3, t & 7)
   {
     const int k1 = t >> 3, m2 = t & 7;
 #pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = xa[f][k1 * ROW + m2 + 8 * r];
+    for (int r = 0; r < 8; ++r) a[r] = xa[k1 * ROW + m2 + 8 * r];
     dft8(a);
 #pragma unroll
-    for (int r = 0; r < 8; ++r) xb[f][k1 * ROW + 9 * r + m2] = cmul(a[r], tw[TW2 + r * 8 + m2]);
+    for (int r = 0; r < 8; ++r) xb[k1 * ROW + 9 * r + m2] = cmul(a[r], tw[TW2 + r * 8 + m2]);
   }
   __syncthreads();
 
@@ -159,41 +176,200 @@ mel_kernel(const float* __restrict__ sig, const float2* __restrict__ window2,
   {
     const int k1 = t >> 3, j1 = t & 7;
 #pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = xb[f][k1 * ROW + 9 * j1 + r];
+    for (int r = 0; r < 8; ++r) a[r] = xb[k1 * ROW + 9 * j1 + r];
     dft8(a);
 #pragma unroll
-    for (int r = 0; r < 8; ++r) xa[f][zpos(k1 + 8 * j1 + 64 * r)] = a[r];
+    for (int r = 0; r < 8; ++r) xa[zpos(k1 + 8 * j1 + 64 * r)] = a[r];
   }
+}
+
+// The split, bin k < NC: X[k] = E[k] + W^k O[k], with E, O the spectra of
+// the even and odd samples recovered from Z[k] and conj(Z[NC - k]);
+// X[NC] = Re Z[0] - Im Z[0] is real and read by the caller.
+__device__ __forceinline__ float2 split_bin(const float2* xa, const float2* __restrict__ tw, int k) {
+  const float2 zk = xa[zpos(k)], zm = xa[zpos((NC - k) & (NC - 1))];
+  const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+  return cadd(e, cmul(tw[TWS + k], o));
+}
+
+// Task t of the filterbank: (mel t, mel 2 n_tasks - 1 - t), a narrow low
+// filter with a wide high one, over their nonzero bins.
+__device__ __forceinline__ float2 filterbank_pair(const float* mags, const int4* __restrict__ tasks,
+                                                  const float* __restrict__ weights, int t,
+                                                  int n_tasks) {
+  const int4 task = tasks[t];  // (first bin, count) of each of the two mels
+  float acc_a = 0.f, acc_b = 0.f;
+  for (int i = 0; i < task.y; ++i) acc_a = fmaf(mags[task.x + i], weights[i * n_tasks + t], acc_a);
+  for (int i = 0; i < task.w; ++i)
+    acc_b = fmaf(mags[task.z + i], weights[(task.y + i) * n_tasks + t], acc_b);
+  return make_float2(acc_a, acc_b);
+}
+
+__global__ void __launch_bounds__(THREADS)
+mel_kernel(const float* __restrict__ sig, const float2* __restrict__ window2,
+           const float2* __restrict__ tw, const int4* __restrict__ tasks,
+           const float* __restrict__ weights, float* __restrict__ out, int n, int T,
+           int n_tasks) {
+  __shared__ __align__(16) float span[SPAN];
+  __shared__ float2 xa[FRAMES][XA];
+  __shared__ float2 xb[FRAMES][XB];
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * FRAMES;
+  const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
+  load_span(sig + static_cast<size_t>(b) * n, span, t0, T, n);
   __syncthreads();
 
-  // split: X[k] = E[k] + W^k O[k], with E, O the spectra of the even and odd
-  // samples recovered from Z[k] and conj(Z[NC - k]); X[NC] = Re Z[0] - Im Z[0]
+  float2 a[8];
+  load_frame(span + f * HOP, window2, t, a);
+  fft512(a, xa[f], xb[f], tw, t);
+  __syncthreads();
+
   float* mags = reinterpret_cast<float*>(xb[f]);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int k = t + 64 * i;
-    const float2 zk = xa[f][zpos(k)], zm = xa[f][zpos((NC - k) & (NC - 1))];
-    const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-    const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
-    const float2 wo = cmul(tw[TWS + k], o);
-    const float re = e.x + wo.x, im = e.y + wo.y;
-    mags[k] = sqrtf(re * re + im * im);
+    const float2 x = split_bin(xa[f], tw, k);
+    mags[k] = sqrtf(x.x * x.x + x.y * x.y);
   }
   if (t == 0) mags[NC] = fabsf(xa[f][0].x - xa[f][0].y);
   __syncthreads();
 
-  // filterbank: task t sums mel t and mel 2 n_tasks - 1 - t
   const int frame = t0 + f;
   if (t < n_tasks && frame < T) {
-    const int4 task = tasks[t];  // (first bin, count) of each of the two mels
-    float acc_a = 0.f, acc_b = 0.f;
-    for (int i = 0; i < task.y; ++i) acc_a = fmaf(mags[task.x + i], weights[i * n_tasks + t], acc_a);
-    for (int i = 0; i < task.w; ++i)
-      acc_b = fmaf(mags[task.z + i], weights[(task.y + i) * n_tasks + t], acc_b);
+    const float2 mel = filterbank_pair(mags, tasks, weights, t, n_tasks);
     float* o = out + (static_cast<size_t>(b) * T + frame) * (2 * n_tasks);
-    o[t] = logf(fmaxf(acc_a, LOG_CLIP));
-    o[2 * n_tasks - 1 - t] = logf(fmaxf(acc_b, LOG_CLIP));
+    o[t] = logf(fmaxf(mel.x, LOG_CLIP));
+    o[2 * n_tasks - 1 - t] = logf(fmaxf(mel.y, LOG_CLIP));
   }
+}
+
+// Kernel A's backward, first launch: each frame's gradient, (B, T, NFFT).
+__global__ void __launch_bounds__(THREADS)
+mel_bwd_frames_kernel(const float* __restrict__ sig, const float* __restrict__ g_mel,
+                      const float2* __restrict__ window2, const float2* __restrict__ tw,
+                      const int4* __restrict__ tasks, const float* __restrict__ weights,
+                      const int2* __restrict__ bin_mels, const float2* __restrict__ bin_weights,
+                      float* __restrict__ g_frames, int n, int T, int n_tasks) {
+  __shared__ __align__(16) float span[SPAN];
+  __shared__ float2 xa[FRAMES][XA];
+  __shared__ float2 xb[FRAMES][XB];
+  __shared__ float g_lin[FRAMES][2 * TPF];
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * FRAMES;
+  const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
+  const int frame = t0 + f;
+  load_span(sig + static_cast<size_t>(b) * n, span, t0, T, n);
+  __syncthreads();
+
+  // the forward again: X[t + 64 i] kept in registers, |X| to exchange B
+  float2 a[8];
+  load_frame(span + f * HOP, window2, t, a);
+  fft512(a, xa[f], xb[f], tw, t);
+  __syncthreads();
+  float2 x[8];
+  float* mags = reinterpret_cast<float*>(xb[f]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x[i] = split_bin(xa[f], tw, t + 64 * i);
+    mags[t + 64 * i] = sqrtf(x[i].x * x[i].x + x[i].y * x[i].y);
+  }
+  const float x_nyq = xa[f][0].x - xa[f][0].y;  // X[NC], real; thread 0's
+  if (t == 0) mags[NC] = fabsf(x_nyq);
+  __syncthreads();
+
+  // g_lin = g_mel / mel where mel >= LOG_CLIP (torch.clamp: a tie passes), else 0
+  if (t < n_tasks) {
+    float2 g = make_float2(0.f, 0.f);
+    if (frame < T) {
+      const float2 mel = filterbank_pair(mags, tasks, weights, t, n_tasks);
+      const float* gm = g_mel + (static_cast<size_t>(b) * T + frame) * (2 * n_tasks);
+      g = make_float2(mel.x >= LOG_CLIP ? gm[t] / mel.x : 0.f,
+                      mel.y >= LOG_CLIP ? gm[2 * n_tasks - 1 - t] / mel.y : 0.f);
+    }
+    g_lin[f][t] = g.x;
+    g_lin[f][2 * n_tasks - 1 - t] = g.y;
+  }
+  __syncthreads();
+
+  // G[k] = g_|X|[k] X[k] / |X[k]| into exchange A (Z is no longer needed)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = t + 64 * i;
+    const int2 m = bin_mels[k];
+    const float2 w = bin_weights[k];
+    const float g_mag = fmaf(w.x, g_lin[f][m.x], w.y * g_lin[f][m.y]);
+    const float mag = mags[k];
+    const float s = mag > 0.f ? g_mag / mag : 0.f;
+    xa[f][k] = make_float2(s * x[i].x, s * x[i].y);
+  }
+  if (t == 0) {
+    const int2 m = bin_mels[NC];
+    const float2 w = bin_weights[NC];
+    const float g_mag = fmaf(w.x, g_lin[f][m.x], w.y * g_lin[f][m.y]);
+    xa[f][NC] = make_float2(x_nyq > 0.f ? g_mag : (x_nyq < 0.f ? -g_mag : 0.f), 0.f);
+  }
+  __syncthreads();
+
+  // the adjoint of the one-sided rfft: Zc[k] = P + i W^-k Q with P, Q =
+  // (G[k] +- conj(G[NC - k])) / 2 for 0 < k < NC; Zc[0] from the real G[0]
+  // and G[NC]; then conj(FFT(conj(Zc))) = y[2m] + i y[2m + 1]
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int k = t + 64 * r;
+    float2 zc;
+    if (k == 0) {
+      const float g0 = xa[f][0].x, gn = xa[f][NC].x;
+      zc = make_float2(g0 + gn, g0 - gn);
+    } else {
+      const float2 gk = xa[f][k], gm = xa[f][NC - k];
+      const float2 p = make_float2(0.5f * (gk.x + gm.x), 0.5f * (gk.y - gm.y));
+      const float2 q = make_float2(0.5f * (gk.x - gm.x), 0.5f * (gk.y + gm.y));
+      const float2 wq = cmul(make_float2(tw[TWS + k].x, -tw[TWS + k].y), q);
+      zc = make_float2(p.x - wq.y, p.y + wq.x);
+    }
+    a[r] = make_float2(zc.x, -zc.y);
+  }
+  __syncthreads();
+  fft512(a, xa[f], xb[f], tw, t);
+  __syncthreads();
+
+  if (frame < T) {
+    float* o = g_frames + (static_cast<size_t>(b) * T + frame) * NFFT;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int m = t + 64 * r;
+      const float2 y = xa[f][zpos(m)];
+      const float2 w = window2[m];
+      *reinterpret_cast<float2*>(o + 2 * m) = make_float2(w.x * y.x, -w.y * y.y);
+    }
+  }
+}
+
+// Sum of the frames' gradients at padded position q: frames t in [t_lo, t_hi]
+// cover it (ops/mel.py::frames_covering), frame t at offset q - t HOP.
+__device__ __forceinline__ float padded_grad(const float* gf, int q, int T) {
+  const int t_lo = q >= NFFT ? (q - NFFT) / HOP + 1 : 0;
+  const int t_hi = min(q / HOP, T - 1);
+  float acc = 0.f;
+  for (int t = t_lo; t <= t_hi; ++t) acc += gf[static_cast<size_t>(t) * NFFT + q - t * HOP];
+  return acc;
+}
+
+// Kernel A's backward, second launch: sample i gathers its padded position
+// i + NC and its reflected partners (ops/mel.py::fold_sources).
+__global__ void mel_bwd_gather_kernel(const float* __restrict__ g_frames, float* __restrict__ g_sig,
+                                      int n, int T) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* gf = g_frames + static_cast<size_t>(b) * T * NFFT;
+  float acc = padded_grad(gf, i + NC, T);
+  if (i >= 1 && i <= NC) acc += padded_grad(gf, NC - i, T);
+  if (i <= n - 2 && i >= n - 1 - NC) acc += padded_grad(gf, 2 * (n - 1) - i + NC, T);
+  g_sig[static_cast<size_t>(b) * n + i] = acc;
 }
 
 }  // namespace
@@ -211,5 +387,27 @@ extern "C" int mt_mel_forward(const float* sig, const float* window, const float
   mel_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       sig, reinterpret_cast<const float2*>(window), reinterpret_cast<const float2*>(tw),
       reinterpret_cast<const int4*>(tasks), weights, out, n, T, n_mels / 2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sig (B, n) fp32 and g_mel (B, T, n_mels) fp32; the forward's tables, and
+// bin_mels (NC + 1,) int2 and bin_weights (NC + 1,) float2
+// (ops/mel.py::bin_tasks); g_frames (B, T, 1024) fp32 scratch; g_sig (B, n)
+// fp32, the result.  All contiguous on the device of `stream`; T = 1 + n /
+// 256, n > 512, n_mels even and at most 128.  Two launches on `stream`.
+extern "C" int mt_mel_backward(const float* sig, const float* g_mel, const float* window,
+                               const float* tw, const int* tasks, const float* weights,
+                               const int* bin_mels, const float* bin_weights, float* g_frames,
+                               float* g_sig, int B, int n, int T, int n_mels, void* stream) {
+  if (n <= NC || n_mels % 2 || n_mels > 2 * TPF) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  mel_bwd_frames_kernel<<<dim3((T + FRAMES - 1) / FRAMES, B), THREADS, 0, st>>>(
+      sig, g_mel, reinterpret_cast<const float2*>(window), reinterpret_cast<const float2*>(tw),
+      reinterpret_cast<const int4*>(tasks), weights, reinterpret_cast<const int2*>(bin_mels),
+      reinterpret_cast<const float2*>(bin_weights), g_frames, n, T, n_mels / 2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int GATHER = 256;
+  mel_bwd_gather_kernel<<<dim3((n + GATHER - 1) / GATHER, B), GATHER, 0, st>>>(g_frames, g_sig, n, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,3 +7,4 @@ from .mrte import MRTE
 from .plm import MegaPLM, plm_infer
 from .vocos import Vocos
 from .vqpe import VQProsodyEncoder
+from .wave_dscrm import PeriodDiscriminator, ScaleDiscriminator, WaveDiscriminator

@@ -40,12 +40,13 @@ from .vocos import Vocos
 Vocoder = HiFiGAN | Vocos
 
 
-def vocode(vocoder: Vocoder, mel: torch.Tensor) -> torch.Tensor:
+def vocode(vocoder: Vocoder, mel: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """mel (B, T, 80) → waveform (B, T*hop) fp32, by the vocoder module's
-    type: :class:`HiFiGAN` (the reference's vocoder) or :class:`Vocos`."""
+    type: :class:`HiFiGAN` (the reference's vocoder) or :class:`Vocos`,
+    computing in ``dtype`` (default: the module's weight dtype)."""
     if not isinstance(vocoder, (HiFiGAN, Vocos)):
         raise TypeError(f"vocode: no vocoder of type {type(vocoder).__name__}")
-    return vocoder(mel).float()
+    return vocoder(mel, dtype).float()
 
 
 def max_pool_time(x: torch.Tensor, stride: int) -> torch.Tensor:

@@ -24,13 +24,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from .dropout import Draws, dropout, in_dtype
-from .layers import LayerNorm, product_then_bias
+from .layers import LayerNorm, gelu_tanh, product_then_bias
 
 CONV_DROPOUT = 0.1  # fixed in the reference's ConvBlock
 
 _ACTS: dict[str, Callable] = {
     "ReLU": F.relu,
-    "GELU": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
+    "GELU": gelu_tanh,  # flax nn.gelu default
     "SiLU": F.silu,
     "Tanh": torch.tanh,
     "LeakyReLU": lambda x: F.leaky_relu(x, in_dtype(0.01, x.dtype)),

@@ -17,24 +17,31 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import in_dtype
+
 
 def product_then_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                      product: Callable) -> torch.Tensor:
+                      product: Callable, channel_dim: int = -1) -> torch.Tensor:
     """``product(w, b)`` with the weight and bias cast to x's dtype; its
-    output is channels-last.  Over weights of x's dtype it is one fused
-    call.  Over weights of another dtype (bf16 compute over fp32 masters)
-    the product is rounded to x's dtype and the bias added after it, as
-    flax's ``Dense`` and ``Conv`` with ``dtype=`` round: a fused bias
-    rounds once, and that one ulp, grown through the GAN generator's
-    layers, is as large as bf16's whole noise there."""
+    output's channels lie along ``channel_dim`` (channels-last by
+    default).  Over weights of x's dtype it is one fused call.  Over
+    weights of another dtype (bf16 compute over fp32 masters) the product
+    is rounded to x's dtype and the bias added after it, as flax's
+    ``Dense`` and ``Conv`` with ``dtype=`` round: a fused bias rounds once,
+    and that one ulp, grown through the GAN generator's layers, is as large
+    as bf16's whole noise there."""
     w = weight.to(x.dtype)
     if bias is None or weight.dtype == x.dtype:
         return product(w, None if bias is None else bias.to(x.dtype))
-    return product(w, None) + bias.to(x.dtype)
+    y = product(w, None)
+    shape = [1] * y.dim()
+    shape[channel_dim] = -1
+    return y + bias.to(x.dtype).reshape(shape)
 
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +53,18 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, norm.normalized_shape, norm.weight, norm.bias, norm.eps)
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
                         norm.bias.float(), norm.eps).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu`` (the tanh form): 0.5 x (1 + tanh(sqrt(2/pi) (x +
+    0.044715 x^3))).  In fp32 PyTorch's one kernel.  In another dtype the
+    formula op by op, each result rounded to x's dtype and the constants
+    too, as JAX computes it (x^3 as x (x x)); the one kernel rounds once at
+    the end, a difference of up to an ulp that bf16 training grows."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c, k = in_dtype(float(np.sqrt(2 / np.pi)), x.dtype), in_dtype(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x))))))
 
 
 class Linear(nn.Linear):

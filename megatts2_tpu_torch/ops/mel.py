@@ -10,8 +10,13 @@ Hann window, center=True reflect padding, then ``log(clamp(x, 1e-5))``.
 * :func:`mel_spectrogram_cuda` — kernel A (``csrc/mel.cu``), which replaces
   the Pallas ``mel_spectrogram_fused``: a register FFT whose index plan,
   twiddles and compact filterbank are built here (:func:`fft_plan`,
-  :func:`kernel_twiddles`, :func:`filterbank_tasks`).
-* :func:`mel_spectrogram` — dispatch by device: CPU → plain, CUDA → kernel.
+  :func:`kernel_twiddles`, :func:`filterbank_tasks`).  On a signal that
+  requires grad it records :class:`MelFunction`, whose backward is kernel
+  A's backward, :func:`mel_spectrogram_bwd_cuda` (its bin table and
+  overlap-add gather stated here: :func:`bin_tasks`, :func:`fold_sources`).
+* :func:`mel_spectrogram` — dispatch by device: CPU → plain (autograd
+  through the plain ops is the backward's plain version,
+  :func:`mel_spectrogram_bwd_plain`), CUDA → kernel.
 
 The numpy filterbank and window helpers are copies of the JAX module's,
 which cannot be imported without importing JAX.
@@ -210,17 +215,66 @@ def filterbank_tasks(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return tasks, weights
 
 
+def bin_tasks(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The filterbank by bin, in the layout kernel A's backward reads for
+    g_|X|[k] = sum_m fb[k, m] g_mel_lin[m]: ``mels`` (n_bins, 2) int32 and
+    ``weights`` (n_bins, 2) fp32, the (at most two) mels whose filter
+    holds bin k and their weights, padded with mel 0 at weight 0.  Slaney
+    filters are triangles over consecutive band edges, so a bin lies in at
+    most two; a filterbank with more raises."""
+    nz = fb != 0
+    if nz.sum(1).max() > 2:
+        raise ValueError(f"kernel A's backward takes at most 2 filters a bin, got {nz.sum(1).max()}")
+    mels = np.zeros((fb.shape[0], 2), np.int32)
+    weights = np.zeros((fb.shape[0], 2), np.float32)
+    for k in range(fb.shape[0]):
+        for d, m in enumerate(np.flatnonzero(nz[k])):
+            mels[k, d], weights[k, d] = m, fb[k, m]
+    return mels, weights
+
+
+def fold_sources(n: int, n_fft: int = 1024) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Kernel A's backward, second launch: where sample i of the signal's
+    gradient gathers from.  ``center=True`` pads the signal by n_fft/2 on
+    each side by reflection (no edge repeat), so sample i sits at padded
+    position q = i + n_fft/2, and also at q = n_fft/2 - i (1 <= i <= n_fft/2)
+    and q = 2 (n - 1) - i + n_fft/2 (n - 1 - n_fft/2 <= i <= n - 2); padded
+    position q holds the sum over the frames t in [t_lo(q), t_hi(q)] that
+    cover it, of frame t's gradient at q - t hop.  Returns, for each of the
+    three positions, (the samples i that have it, their q); the kernel
+    computes the same indices in the same formulas, and a CPU test runs
+    them in numpy."""
+    half = n_fft // 2
+    i = np.arange(n)
+    left = (i >= 1) & (i <= half)
+    right = (i <= n - 2) & (i >= n - 1 - half)
+    return [(i, i + half), (i[left], half - i[left]), (i[right], 2 * (n - 1) - i[right] + half)]
+
+
+def frames_covering(q: np.ndarray, T: int, n_fft: int = 1024, hop: int = 256) -> tuple[np.ndarray, np.ndarray]:
+    """(t_lo, t_hi), the first and last frame whose window holds padded
+    position q: t hop <= q < t hop + n_fft, 0 <= t < T (empty if t_lo > t_hi)."""
+    t_lo = np.where(q >= n_fft, (q - n_fft) // hop + 1, 0)
+    t_hi = np.minimum(q // hop, T - 1)
+    return t_lo, t_hi
+
+
 @functools.lru_cache(maxsize=8)
 def _kernel_tables(n_mels: int, device: torch.device):
     """Kernel A's tables on ``device``, built once: window (1024,) fp32,
-    twiddles (1088, 2) fp32, filterbank tasks and weights."""
-    tasks, weights = filterbank_tasks(mel_filterbank(n_mels=n_mels))
+    twiddles (1088, 2) fp32, filterbank tasks and weights, and the
+    backward's bin mels and weights."""
+    fb = mel_filterbank(n_mels=n_mels)
+    tasks, weights = filterbank_tasks(fb)
+    mels, bin_weights = bin_tasks(fb)
     tw = kernel_twiddles()
     return (
         _tables(1024, 1024, n_mels, device)[0],  # the window
         torch.from_numpy(np.stack([tw.real, tw.imag], 1)).to(device),
         torch.from_numpy(tasks).to(device),
         torch.from_numpy(weights).to(device),
+        torch.from_numpy(mels).to(device),
+        torch.from_numpy(bin_weights).to(device),
     )
 
 
@@ -248,22 +302,14 @@ def mel_spectrogram_plain(
     return mel[0] if squeeze else mel
 
 
-def mel_spectrogram_cuda(
-    signal: torch.Tensor,  # (n,) or (B, n) float32, contiguous, on a CUDA device
-    n_fft: int = HIFIGAN_NFFT,
-    hop: int = HIFIGAN_HOP_LENGTH,
-    win_length: int = HIFIGAN_WIN_LENGTH,
-    n_mels: int = HIFIGAN_MEL_CHANNELS,
-) -> torch.Tensor:
-    """Kernel A (``csrc/mel.cu``): the same function in one launch.  It has
-    no backward: on a signal that requires grad, with grad mode on, it
-    raises rather than return a mel that autograd would not follow."""
+def _check_kernel_args(signal: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                       n_mels: int) -> None:
     if not signal.is_cuda:
         raise ValueError(f"mel_spectrogram_cuda takes a CUDA tensor, got {signal.device}")
     if signal.dtype != torch.float32:
         raise ValueError(f"mel_spectrogram_cuda takes float32, got {signal.dtype}")
-    if signal.dim() not in (1, 2) or not signal.is_contiguous():
-        raise ValueError("mel_spectrogram_cuda takes a contiguous (n,) or (B, n) signal")
+    if signal.dim() not in (1, 2):
+        raise ValueError("mel_spectrogram_cuda takes an (n,) or (B, n) signal")
     if (n_fft, hop, win_length) != (1024, 256, 1024):
         raise ValueError("the mel kernel is built for n_fft 1024, hop 256, win_length 1024")
     if n_mels % 2 or n_mels > 2 * FFT_THREADS:
@@ -271,30 +317,114 @@ def mel_spectrogram_cuda(
     n = signal.shape[-1]
     if n <= n_fft // 2:
         raise ValueError(f"reflect padding needs more than {n_fft // 2} samples, got {n}")
-    if signal.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            "mel_spectrogram: kernel A has no backward yet, so a gradient through the mel of a "
-            "CUDA signal cannot be recorded; detach the signal or compute under torch.no_grad()")
+
+
+def _mel_forward(sig: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """One launch of kernel A's forward on a contiguous (B, n) fp32 signal."""
     from ..csrc.build import check, load_library
 
+    if not sig.is_contiguous():
+        raise ValueError("the mel kernel takes a contiguous signal")
     lib = load_library()
-    squeeze = signal.dim() == 1
-    sig = signal[None] if squeeze else signal
-    B = sig.shape[0]
-    T = num_frames(n, hop)
-    window, tw, tasks, weights = _kernel_tables(n_mels, signal.device)
-    out = torch.empty((B, T, n_mels), dtype=torch.float32, device=signal.device)
-    with torch.cuda.device(signal.device):
+    B, n = sig.shape
+    T = num_frames(n)
+    window, tw, tasks, weights, _, _ = _kernel_tables(n_mels, sig.device)
+    out = torch.empty((B, T, n_mels), dtype=torch.float32, device=sig.device)
+    with torch.cuda.device(sig.device):
         err = lib.mt_mel_forward(
             sig.data_ptr(), window.data_ptr(), tw.data_ptr(), tasks.data_ptr(), weights.data_ptr(),
             out.data_ptr(), B, n, T, n_mels, torch.cuda.current_stream().cuda_stream,
         )
     check(err, "mel kernel")
     mel_spectrogram_cuda.launches += 1
+    return out
+
+
+def mel_spectrogram_bwd_cuda(signal: torch.Tensor, g_mel: torch.Tensor) -> torch.Tensor:
+    """Kernel A's backward: the gradient of ``sum(g_mel * mel(signal))``
+    with respect to the (B, n) fp32 contiguous CUDA ``signal``, for
+    ``g_mel`` (B, 1 + n // 256, n_mels).  Two launches (``csrc/mel.cu``):
+    each frame's gradient into a (B, T, 1024) scratch, then each sample
+    gathers its frames and its reflected partners (:func:`fold_sources`).
+    The clamp follows ``torch.clamp``: a mel at exactly 1e-5 passes its
+    whole gradient (JAX's ``clip`` passes half)."""
+    from ..csrc.build import check, load_library
+
+    _check_kernel_args(signal, 1024, 256, 1024, g_mel.shape[-1])
+    if signal.dim() != 2 or not signal.is_contiguous():
+        raise ValueError("mel_spectrogram_bwd_cuda takes a contiguous (B, n) signal")
+    B, n = signal.shape
+    T, n_mels = num_frames(n), g_mel.shape[-1]
+    if tuple(g_mel.shape) != (B, T, n_mels) or g_mel.device != signal.device:
+        raise ValueError(f"g_mel {tuple(g_mel.shape)} on {g_mel.device} does not match the "
+                         f"signal's mel ({B}, {T}, {n_mels}) on {signal.device}")
+    g_mel = g_mel.float().contiguous()
+    lib = load_library()
+    window, tw, tasks, weights, mels, bin_weights = _kernel_tables(n_mels, signal.device)
+    g_frames = torch.empty((B, T, 1024), dtype=torch.float32, device=signal.device)
+    g_sig = torch.empty_like(signal)
+    with torch.cuda.device(signal.device):
+        err = lib.mt_mel_backward(
+            signal.data_ptr(), g_mel.data_ptr(), window.data_ptr(), tw.data_ptr(),
+            tasks.data_ptr(), weights.data_ptr(), mels.data_ptr(), bin_weights.data_ptr(),
+            g_frames.data_ptr(), g_sig.data_ptr(), B, n, T, n_mels,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err, "mel backward kernel")
+    mel_spectrogram_bwd_cuda.launches += 1
+    return g_sig
+
+
+mel_spectrogram_bwd_cuda.launches = 0
+
+
+class MelFunction(torch.autograd.Function):
+    """Kernel A with its backward kernel, on a contiguous (B, n) signal."""
+
+    @staticmethod
+    def forward(ctx, sig: torch.Tensor, n_mels: int) -> torch.Tensor:
+        ctx.save_for_backward(sig)
+        return _mel_forward(sig, n_mels)
+
+    @staticmethod
+    def backward(ctx, g_mel: torch.Tensor):
+        (sig,) = ctx.saved_tensors
+        return mel_spectrogram_bwd_cuda(sig, g_mel), None
+
+
+def mel_spectrogram_cuda(
+    signal: torch.Tensor,  # (n,) or (B, n) float32 on a CUDA device
+    n_fft: int = HIFIGAN_NFFT,
+    hop: int = HIFIGAN_HOP_LENGTH,
+    win_length: int = HIFIGAN_WIN_LENGTH,
+    n_mels: int = HIFIGAN_MEL_CHANNELS,
+) -> torch.Tensor:
+    """Kernel A (``csrc/mel.cu``): the same function in one launch.  When
+    autograd records (a signal that requires grad, grad mode on), through
+    :class:`MelFunction`, whose backward launches
+    :func:`mel_spectrogram_bwd_cuda`; the signal is made contiguous first
+    (a vocoder's output is a slice of its overlap-add), and autograd
+    carries the gradient back through that copy to the view."""
+    _check_kernel_args(signal, n_fft, hop, win_length, n_mels)
+    squeeze = signal.dim() == 1
+    sig = (signal[None] if squeeze else signal).contiguous()
+    if sig.requires_grad and torch.is_grad_enabled():
+        out = MelFunction.apply(sig, n_mels)
+    else:
+        out = _mel_forward(sig, n_mels)
     return out[0] if squeeze else out
 
 
 mel_spectrogram_cuda.launches = 0
+
+
+def mel_spectrogram_bwd_plain(signal: torch.Tensor, g_mel: torch.Tensor) -> torch.Tensor:
+    """The backward's plain version: autograd through
+    :func:`mel_spectrogram_plain` (``torch.clamp``'s tie convention)."""
+    sig = signal.detach().requires_grad_()
+    with torch.enable_grad():
+        mel = mel_spectrogram_plain(sig)
+    return torch.autograd.grad(mel, sig, g_mel)[0]
 
 
 def mel_spectrogram(

@@ -2,9 +2,10 @@
 
     python megatts2_tpu_torch/tools/kernel_times.py [--root DIR]
 
-For kernels A and B at the synthesis path's shapes (:func:`cases`, the
-inputs ``chip_smoke.py`` times too), prints one JSON line each with three
-times per call, on the card:
+For kernels A and B at the synthesis path's shapes, and kernel A's
+backward at the vocoder trainer's (:func:`cases`, the inputs
+``chip_smoke.py`` times too), prints one JSON line each with three times
+per call, on the card:
 
 * ``event_ms`` — CUDA events around 20 back-to-back warm calls;
 * ``device_us`` — the kernel's own span in a ``torch.profiler`` trace;
@@ -106,12 +107,16 @@ def time_cases(cases: dict) -> dict:
 def inputs(dev: torch.device, seed: int = 0) -> dict:
     """Kernel B's and A's inputs on the synthesis path: the MRTE's
     self-attention (8, 64, 2, 256) bf16 with mixed key lengths, the batched
-    prompt front end (8, 131000) and one ~4 s prompt (64001,), fp32."""
+    prompt front end (8, 131000) and one ~4 s prompt (64001,), fp32; and
+    kernel A's backward on the vocoder trainer's crops, (8, 16384) fp32
+    with a gradient for each of its (8, 65, 80) mels."""
     gen = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
     lens = torch.randint(16, 65, (8,), generator=gen, dtype=torch.int32).to(dev)
     return {"mrte": (q, k, v, lens), "mel": (torch.randn(8, 131000, generator=gen) * 0.1).to(dev),
-            "mel_prompt": (torch.randn(64001, generator=gen) * 0.1).to(dev)}
+            "mel_prompt": (torch.randn(64001, generator=gen) * 0.1).to(dev),
+            "mel_bwd": ((torch.randn(8, 16384, generator=gen) * 0.1).to(dev),
+                        torch.randn(8, 65, 80, generator=gen).to(dev))}
 
 
 def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
@@ -131,6 +136,7 @@ def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
         "tma_check": (lambda: [att._tma_ready(t, Counter) for t in (q, k, v)], None),
         "mel": (lambda: mel.mel_spectrogram_cuda(x["mel"]), "mel"),
         "mel_prompt": (lambda: mel.mel_spectrogram_cuda(x["mel_prompt"]), "mel"),
+        "mel_bwd": (lambda: mel.mel_spectrogram_bwd_cuda(*x["mel_bwd"]), "mel_bwd"),
     }
 
 

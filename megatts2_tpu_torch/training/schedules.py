@@ -1,7 +1,9 @@
-"""LR schedule and optimizer (port of ``megatts2_tpu/training/schedules.py``):
-linear warmup to ``lr`` over ``warmup_steps``, then cosine decay to 0 at
-``total_steps`` (``transformers.get_cosine_schedule_with_warmup``,
-num_cycles=0.5), under AdamW.
+"""LR schedules and optimizer (port of ``megatts2_tpu/training/schedules.py``
+and of the vocoder trainer's ``_make_tx``): linear warmup to ``lr`` over
+``warmup_steps``, then cosine decay to 0 at ``total_steps``
+(``transformers.get_cosine_schedule_with_warmup``, num_cycles=0.5), under
+AdamW; or ``optax.exponential_decay`` (continuous, not staircase), under
+AdamW with optax's weight decay 1e-4 (the vocoder).
 
 optax's ``adamw`` and ``torch.optim.AdamW`` take the same step: bias
 corrected moments, eps outside the square root, decoupled weight decay on
@@ -31,6 +33,31 @@ def cosine_schedule_with_warmup(lr: float, warmup_steps: int, total_steps: int) 
     return schedule
 
 
+def exponential_decay(lr: float, transition_steps: int, decay_rate: float) -> Callable[[int], float]:
+    """``optax.exponential_decay(lr, transition_steps, decay_rate)``:
+    lr · decay_rate ** (step / transition_steps), continuous."""
+
+    def schedule(step: int) -> float:
+        return lr * decay_rate ** (step / transition_steps)
+
+    return schedule
+
+
+def adamw(
+    params: Iterable[torch.nn.Parameter],
+    schedule: Callable[[int], float],
+    weight_decay: float,
+    b1: float,
+    b2: float,
+    eps: float = 1e-8,
+) -> tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+    """AdamW whose learning rate is ``schedule(updates taken)``.  Step the
+    scheduler after the optimizer."""
+    # base lr 1, so that LambdaLR's factor is the scheduled rate itself
+    opt = torch.optim.AdamW(params, lr=1.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+
+
 def make_adamw(
     params: Iterable[torch.nn.Parameter],
     lr: float,
@@ -42,9 +69,6 @@ def make_adamw(
     eps: float = 1e-8,
 ) -> tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
     """AdamW with the cosine-warmup schedule (torch AdamW defaults:
-    betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01).  Step the scheduler
-    after the optimizer."""
-    # base lr 1, so that LambdaLR's factor is the scheduled rate itself
-    opt = torch.optim.AdamW(params, lr=1.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
-    schedule = cosine_schedule_with_warmup(lr, warmup_steps, total_steps)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)."""
+    return adamw(params, cosine_schedule_with_warmup(lr, warmup_steps, total_steps),
+                 weight_decay, b1, b2, eps)

@@ -12,7 +12,8 @@ max) and rtol 1e-5 (row sum), fp32 sums in another order; the backward
 and ds are rounded to bf16 before their products and a rounding that flips
 moves a term by one bf16 ulp; log-mel atol 1e-3, because the kernel's FFT
 and ``torch.fft`` sum 1024 terms in different orders and log(clamp(.,
-1e-5)) magnifies that near the clamp; the copy pump (kernel D) exactly, since both its
+1e-5)) magnifies that near the clamp; kernel A's backward 1e-4 of the
+gradient's largest magnitude, for the same reasons; the copy pump (kernel D) exactly, since both its
 outputs are integer sums."""
 import numpy as np
 import pytest
@@ -289,21 +290,73 @@ def test_mel_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
 
 
-def test_mel_kernel_refuses_to_record_a_gradient(cuda):
-    """Kernel A has no backward: where autograd would record through it
-    (a signal that requires grad, grad mode on) it raises, naming the
-    missing backward, rather than return a mel that cuts the graph."""
-    y = (torch.randn(2, 4000, generator=torch.Generator().manual_seed(7)) * 0.1).to(cuda)
-    y.requires_grad_()
-    before = tmel.mel_spectrogram_cuda.launches
-    for fn in (tmel.mel_spectrogram, tmel.mel_spectrogram_cuda):
-        with pytest.raises(RuntimeError, match="no backward"):
-            fn(y)
-    assert tmel.mel_spectrogram_cuda.launches == before
+# the training path's (8, 16384), with the trainer's [:, :64] slice, and
+# the signals of the forward's checks
+MEL_BWD_SHAPES = [((8, 16384), 64), ((8, 16384), None), ((1, 513), None), ((3, 777), None),
+                  ((8, 131000), None)]
+
+
+@pytest.mark.parametrize("shape,keep", MEL_BWD_SHAPES)
+def test_mel_backward_kernel_matches_plain(cuda, shape, keep):
+    """Kernel A's backward against autograd through the plain mel, within
+    1e-4 of the gradient's largest magnitude (the FFTs and sums in other
+    orders; log's 1/mel amplifies where a mel is small)."""
+    g = torch.Generator().manual_seed(3)
+    y = (torch.randn(shape, generator=g) * 0.1).to(cuda)
+    T = tmel.num_frames(shape[-1])
+    g_mel = torch.randn(shape[0], T, 80, generator=g).to(cuda)
+    if keep is not None:
+        g_mel[:, keep:] = 0  # what the slice's backward hands on
+    before = tmel.mel_spectrogram_bwd_cuda.launches
+    got = tmel.mel_spectrogram_bwd_cuda(y, g_mel)
+    torch.cuda.synchronize()
+    assert tmel.mel_spectrogram_bwd_cuda.launches == before + 1
+    ref = tmel.mel_spectrogram_bwd_plain(y, g_mel)
+    assert got.shape == ref.shape == y.shape
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_mel_records_a_grad_fn_that_launches_the_backward(cuda):
+    """On a CUDA signal that requires grad, ``mel_spectrogram`` records
+    kernel A's Function; a non-contiguous view (a vocoder's output is a
+    slice) gets its gradient back through the copy."""
+    g = torch.Generator().manual_seed(7)
+    base = (torch.randn(2, 4200, generator=g) * 0.1).to(cuda).requires_grad_()
+    y = base[:, 50:4150]
+    assert not y.is_contiguous()
+    fwd, bwd = tmel.mel_spectrogram_cuda.launches, tmel.mel_spectrogram_bwd_cuda.launches
+    mel = tmel.mel_spectrogram(y)
+    assert mel.grad_fn is not None
+    g_mel = torch.randn(mel.shape, generator=g).to(cuda)
+    mel.backward(g_mel)
+    torch.cuda.synchronize()
+    assert tmel.mel_spectrogram_cuda.launches == fwd + 1
+    assert tmel.mel_spectrogram_bwd_cuda.launches == bwd + 1
+    ref = tmel.mel_spectrogram_bwd_plain(y.detach().contiguous(), g_mel)
+    want = torch.zeros_like(base)
+    want[:, 50:4150] = ref
+    assert (base.grad - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_mel_backward_on_silence_is_zero(cuda):
+    """|X| = 0 and every mel under the clamp: no gradient, no NaN."""
+    got = tmel.mel_spectrogram_bwd_cuda(torch.zeros(2, 3000, device=cuda),
+                                        torch.ones(2, tmel.num_frames(3000), 80, device=cuda))
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_mel_backward_rejects_what_it_does_not_take(cuda):
+    y = torch.zeros(2, 3000, device=cuda)
+    with pytest.raises(ValueError, match="g_mel"):
+        tmel.mel_spectrogram_bwd_cuda(y, torch.zeros(2, 5, 80, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tmel.mel_spectrogram_bwd_cuda(torch.zeros(3000, 2, device=cuda).t(),
+                                      torch.zeros(2, tmel.num_frames(3000), 80, device=cuda))
 
 
 def test_mel_kernel_launches_without_grad(cuda):
-    """Under ``no_grad``, or on a detached signal, the kernel still runs."""
+    """Under ``no_grad``, or on a detached signal, the forward kernel runs
+    alone and records nothing."""
     y = (torch.randn(2, 4000, generator=torch.Generator().manual_seed(8)) * 0.1).to(cuda)
     y.requires_grad_()
     before = tmel.mel_spectrogram_cuda.launches

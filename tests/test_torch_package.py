@@ -19,7 +19,8 @@ from megatts2_tpu_torch.bridge import load_flax_params
 
 KEY = jax.random.PRNGKey(0)
 CONFIGS = ["MRTEConfig", "VQPEConfig", "MegaGConfig", "DiscriminatorConfig", "MegaPLMConfig",
-           "MegaADMConfig", "HiFiGANConfig", "VocosConfig", "TrainConfig"]
+           "MegaADMConfig", "HiFiGANConfig", "VocosConfig", "WaveDiscConfig",
+           "VocoderTrainConfig", "TrainConfig"]
 
 
 def _default(f):
