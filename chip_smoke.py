@@ -104,6 +104,38 @@ Phases, each printing a line; any failure raises and exits non-zero:
    ``torch.profiler`` breakdown of a warm step by kernel group (conv,
    matmul, FFT, kernel A, other) with the idle share.
 
+Added for the serving slice (run after the kernels phase and the slice):
+
+3b. kernels, serving — kernels B and C at head dims that are no
+   tensor-core instance, (8, 64, 8, 96) (the ADM at ``tc_emb_dim=512``)
+   and (2, 50, 3, 80) (zero-padded to 96), fp32 and bf16, causal and not,
+   against their plain versions under ``ATOL_ATT`` and ``REL_BWD``; kernel
+   B at Dh 96 and causal at the engine's prefill (8, 2048, 16, 64) bf16,
+   timed beside SDPA and the bound.
+13. serve reference — small fp32 models: the port's checkpoints written in
+   the reference layout and read back onto the card (every tensor equal);
+   the continuous engine (2 slots, requests at Tp 40, 64 and 24, the third
+   admitted mid-flight) and a stream, each equal to ``synthesize`` at its
+   frame budget; the card equal to the CPU (lengths equal, waveforms
+   within 1e-3).
+14. serve — ``configs/config_plm.yaml`` and ``configs/config_adm.yaml`` as
+   shipped and a copy of ``configs/config_gan.yaml`` with ``use_flash``
+   under the MRTE, read by the port's YAML reader; seeded random weights
+   written by the port's checkpoint writer as reference-layout ``.ckpt``
+   files (sizes printed) and loaded through ``megatts_from_pretrained``;
+   ``serve.main`` in process with ``serve.py``'s defaults (batch 8,
+   buckets 256-2048, 16 frames a phone, 1024 frames, 8 slots, chunks of
+   128, HiFi-GAN) over 16 requests of mixed lengths and two prompt dirs:
+   batch, ``--continuous``, ``--continuous`` with a synthetic stage-2
+   ``--prompt_ds`` at ``--prompt_tokens 2048``, and ``--http`` on
+   127.0.0.1 (8 concurrent POSTs and a ``/healthz``).  Kernel A's and B's
+   counters (B's tensor-core and causal ones too) are set to 0 before each
+   mode and must be > 0 after it (B causal in the prompted mode: the
+   prefill); every wav a whole number of frames.  Each mode's wall, utt/s,
+   audio seconds, RTF and peak memory; then a stream's time to first chunk.
+
+Each phase's seconds are printed.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
 the JAX package.
@@ -652,6 +684,80 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                    "mel_prompt": t_mel_prompt, "mel_bwd": t_mel_bwd, **times}}
 
 
+# kernels B and C at head dims that are no tensor-core instance: 96 (the ADM
+# at tc_emb_dim 512; the SIMT instance) and 80 (zero-padded to 96)
+HEAD_DIM_SHAPES = ((8, 64, 8, 96), (2, 50, 3, 80))
+PREFILL_P = 2048  # the continuous engine's prompt budget at --prompt_tokens 2048
+
+
+def phase_kernels_serving(dev: torch.device, card: str, k: dict) -> None:
+    """Kernels B and C at head dims 96 and 80, fp32 and bf16, against their
+    plain versions; kernel B at Dh 96 and causal at the engine's prefill
+    shape (8, 2048, 16, 64) bf16, timed beside SDPA and the bound.  Adds
+    its errors, times, bounds and library times to the kernels phase's ``k``."""
+    from megatts2_tpu_torch.ops import attention as att
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    err, ms, lib, bounds = k["err"], k["ms"], k["lib"], k["bound"]
+    for shape in HEAD_DIM_SHAPES:
+        B, T = shape[0], shape[1]
+        lens = torch.tensor(([T, 1, T // 3 + 1, T - 5] * B)[:B], dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k_, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
+            for causal in (False, True):
+                out, m, l = att.flash_attention_cuda(q, k_, v, lens, causal, return_stats=True)
+                ref, pm, pl = att.flash_attention_plain(q, k_, v, lens, causal, return_stats=True)
+                e = (out.float() - ref.float()).abs().max().item()
+                em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
+                check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+                      f"flash {shape} {dtype}: shape or non-finite")
+                check(e <= ATOL_ATT[dtype] and em <= ATOL_M and el <= RTOL_L,
+                      f"flash {shape} {dtype} causal={causal}: err {e}, m {em}, l {el}")
+                got = att.flash_attention_bwd_cuda(q, k_, v, lens, causal, g, m, l)
+                ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k_, v, lens, causal, g, m, l))
+                check(all(a.shape == q.shape for a in got) and
+                      all(a <= REL_BWD[dtype] * t for a, t in ge),
+                      f"flash bwd {shape} {dtype} causal={causal}: {ge}")
+                err["flash"] = max(err["flash"], e)
+                err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+                print(f"kernel flash_attention {shape} {str(dtype)[6:]} causal={causal} (head dim "
+                      f"{shape[3]} on instance {att.instance_head_dim(shape[3])}): max_abs_err {e:.3g} "
+                      f"(atol {ATOL_ATT[dtype]}); backward max_abs_err/max "
+                      f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))}"
+                      f" (rel {REL_BWD[dtype]})")
+    # kernel B at Dh 96 bf16 (its SIMT instance), every row of length 64
+    q, k_, v = (torch.randn(8, 64, 8, 96, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    lens = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    ms["dh96"] = in_turns(lambda: att.flash_attention_plain(q, k_, v, lens),
+                          lambda: att.flash_attention_cuda(q, k_, v, lens))
+    lib["dh96"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k_.transpose(1, 2), v.transpose(1, 2)))
+    bounds["dh96"] = bound(4 * q.numel() * 2, 4 * 96 * attn_pairs([64] * 8, 64, 8, False), "bf16")
+    # the engine's prompt prefill: causal over 2048 prompt codes in every row
+    q, k_, v = (torch.randn(8, PREFILL_P, 16, 64, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(3))
+    plen = torch.full((8,), PREFILL_P, dtype=torch.int32, device=dev)
+    got = att.flash_attention_cuda(q, k_, v, plen, True)
+    e = (got.float() - att.flash_attention_plain(q, k_, v, plen, True).float()).abs().max().item()
+    check(e <= ATOL_ATT[torch.bfloat16], f"flash prefill P={PREFILL_P}: err {e}")
+    err["flash"] = max(err["flash"], e)
+    key = f"prefill_{PREFILL_P}"
+    ms[key] = in_turns(lambda: att.flash_attention_plain(q, k_, v, plen, True),
+                       lambda: att.flash_attention_cuda(q, k_, v, plen, True))
+    lib[key] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k_.transpose(1, 2), v.transpose(1, 2), is_causal=True))
+    bounds[key] = bound(4 * q.numel() * 2, 4 * 64 * attn_pairs([PREFILL_P] * 8, PREFILL_P, 16, True),
+                        "bf16")
+    for name, key_ in (("(8,64,8,96) bf16 simt", "dh96"),
+                       (f"prefill (8,{PREFILL_P},16,64) bf16 causal tensor cores", key)):
+        tk, tp = ms[key_]
+        print(f"time flash_attention {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, library (SDPA) "
+              f"{lib[key_]:.4f} ms, bound {bounds[key_][0]:.4f} ms by {bounds[key_][1]} [{card}]")
+    print(f"kernel flash_attention prefill (8,{PREFILL_P},16,64) bf16 causal: max_abs_err {e:.3g} "
+          f"(atol {ATOL_ATT[torch.bfloat16]})")
+    torch.cuda.synchronize()
+
+
 def _configs(full: bool):
     from megatts2_tpu_torch import config as c
 
@@ -918,6 +1024,305 @@ def phase_slice(dev: torch.device, card: str, root: str) -> dict:
         launches[label] = _drive_slice(tts, label, card, root, wavs, sig, feats)
         del tts, g, plm, adm, vocos
         torch.cuda.empty_cache()
+    return launches
+
+
+SERVE_TPS = (40, 64, 24)  # the serve reference's requests: the third is admitted mid-flight
+
+
+def _serve_requests(mels, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, tp in enumerate(SERVE_TPS):
+        phone = rng.randint(1, 320, (1, tp))
+        out.append({"id": f"r{i}", "phone": phone, "lens": np.array([tp]),
+                    "mels_prompt": mels[i % len(mels)][None]})
+    return out
+
+
+def phase_serve_reference(dev: torch.device, root: str) -> None:
+    """Small fp32 models: the port's checkpoints written and read back onto
+    the card; the continuous engine (2 slots, 3 requests, one admitted
+    mid-flight) and a stream, each equal to ``synthesize`` at its budget;
+    the card equal to the CPU."""
+    from megatts2_tpu_torch.continuous import ContinuousEngine
+    from megatts2_tpu_torch.models import synthesize
+    from megatts2_tpu_torch.models.pretrained import _load
+    from megatts2_tpu_torch.models.streaming import stream_geometry, stream_synthesize
+    from megatts2_tpu_torch.ops import mel_spectrogram
+    from megatts2_tpu_torch.training.checkpoints import model_state_dict
+
+    src = _models(False, SEED + 21)
+    path = os.path.join(root, "small.ckpt")
+    sd = {}
+    for module in src:
+        sd.update(model_state_dict(module))
+    torch.save({"state_dict": sd}, path)
+    fresh = _models(False, SEED + 22)
+    loaded = [_load(m, path).to(dev) for m in fresh]
+    for a, b in zip(src, loaded):
+        for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            check(torch.equal(x, y.cpu()), f"checkpoint round trip: {type(a).__name__}.{name}")
+    print(f"serve reference: {len(sd)} reference-layout tensors written ({os.path.getsize(path) / 2**20:.1f} "
+          f"MiB) and read back onto the card, every parameter and buffer equal")
+
+    rng = np.random.RandomState(SEED + 23)
+    wavs = torch.from_numpy((rng.randn(2, 20000) * 0.1).astype(np.float32))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        g, plm, adm, voc = (x.to(d).eval() for x in _models(False, SEED + 21))
+        mels = mel_spectrogram(wavs.to(d))
+        eng = ContinuousEngine(g, plm, adm, voc, slots=2, max_frames=256, chunk_frames=64, device=d)
+        reqs = _serve_requests(mels, SEED + 24)
+        got = dict(eng.run(reqs))
+        check(sorted(got) == ["r0", "r1", "r2"], f"engine on {d.type}: {sorted(got)}")
+        for r in reqs:
+            tp = r["phone"].shape[1]
+            phone = torch.zeros((1, -(-tp // 16) * 16), dtype=torch.long)
+            phone[0, :tp] = torch.from_numpy(r["phone"][0])
+            wav, _, n = synthesize(g, plm, adm, voc, phone.to(d), torch.tensor([tp], device=d),
+                                   r["mels_prompt"], eng.Tmax)
+            want = wav[0, : int(n[0]) * 256].cpu().numpy()
+            e = float(np.abs(got[r["id"]] - want).max()) if got[r["id"]].shape == want.shape else None
+            check(e is not None and e <= 1e-3,
+                  f"engine on {d.type}, {r['id']}: {got[r['id']].shape} vs {want.shape}, err {e}")
+        F_, rv, rd, Tmax = stream_geometry(g.cfg, voc.cfg, 192, 64)
+        r = reqs[0]
+        phone = torch.from_numpy(r["phone"]).to(d)
+        lens = torch.tensor([phone.shape[1]], device=d)
+        chunks = list(stream_synthesize(g, plm, adm, voc, phone, lens, r["mels_prompt"], 192, 64))
+        wav, _, n = synthesize(g, plm, adm, voc, phone, lens, r["mels_prompt"], Tmax)
+        want = wav[0, : int(n[0]) * 256].cpu().numpy()
+        streamed = np.concatenate(chunks)
+        check(streamed.shape == want.shape and float(np.abs(streamed - want).max()) <= 1e-3,
+              f"stream on {d.type}: {streamed.shape} vs {want.shape}")
+        out[d.type] = (got, streamed, len(chunks))
+    (g0, s0, c0), (g1, s1, c1) = out["cpu"], out["cuda"]
+    errs = {rid: float(np.abs(g0[rid] - g1[rid]).max()) for rid in g0 if g0[rid].shape == g1[rid].shape}
+    check(len(errs) == 3 and max(errs.values()) <= 1e-3 and s0.shape == s1.shape
+          and float(np.abs(s0 - s1).max()) <= 1e-3,
+          f"serve reference card vs CPU: {errs}, stream {s0.shape} vs {s1.shape}")
+    print(f"serve reference fp32 small: engine (2 slots; Tp {SERVE_TPS}, one admitted mid-flight) and "
+          f"a {c1}-chunk stream each equal synthesize at their budget (atol 1e-3), on card and CPU; "
+          f"card vs CPU lengths equal, max_abs_err engine {errs}, stream "
+          f"{float(np.abs(s0 - s1).max()):.3g}")
+
+
+SERVE_REPEATS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32, 2)  # "hello world" x n
+
+
+def _serve_inputs(root: str, wavs: str) -> dict:
+    """Configs (the GAN's copied with use_flash under the MRTE), two prompt
+    dirs of one wav each, the 16 requests and a synthetic stage-2 prompt
+    dataset for speaker spkA."""
+    import shutil
+
+    from megatts2_tpu_torch.data import Cut, CutManifest
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    gan = os.path.join(root, "config_gan_flash.yaml")
+    with open(os.path.join(repo, "configs", "config_gan.yaml")) as f:
+        text = f.read()
+    check("    mrte:\n" in text, "config_gan.yaml: no mrte block")
+    with open(gan, "w") as f:
+        f.write(text.replace("    mrte:\n", "    mrte:\n      use_flash: true\n", 1))
+    dirs = {}
+    for name in ("a", "b"):
+        dirs[name] = os.path.join(root, f"prompt_{name}")
+        os.makedirs(dirs[name])
+        shutil.copy(os.path.join(wavs, f"{name}.wav"), dirs[name])
+    reqs = os.path.join(root, "requests.jsonl")
+    with open(reqs, "w") as f:
+        for i, n in enumerate(SERVE_REPEATS):
+            f.write(json.dumps({"id": f"u{i:02d}", "text": " ".join(["hello world"] * n),
+                                "wavs_dir": dirs["a" if i % 2 else "b"]}) + "\n")
+    prompted = os.path.join(root, "requests_prompted.jsonl")
+    with open(reqs) as f, open(prompted, "w") as g:
+        for line in f:
+            g.write(json.dumps({**json.loads(line), "prompt_speaker": "spkA"}) + "\n")
+    ds = os.path.join(root, "prompt_ds")
+    os.makedirs(os.path.join(ds, "latents", "spkA"))
+    rng = np.random.RandomState(SEED + 31)
+    cuts = []
+    for i in range(3):  # 3 utterances of 100 phones x 8 frames = 100 codes each
+        cid = f"c{i}"
+        cuts.append(Cut(id=cid, speaker="spkA", duration=800 * 256 / 16000, num_frames=800,
+                        phone_tokens=["hello"] * 100, duration_tokens=[8] * 100))
+        np.save(os.path.join(ds, "latents", "spkA", f"{cid}.npy"),
+                {"tc_latent": rng.randn(1, 100, 512).astype(np.float32),
+                 "p_code": rng.randint(0, 1024, (1, 1, 100)).astype(np.int32)}, allow_pickle=True)
+    CutManifest(cuts).save(os.path.join(ds, "cuts_train.jsonl.gz"))
+    return dict(gan=gan, plm=os.path.join(repo, "configs", "config_plm.yaml"),
+                adm=os.path.join(repo, "configs", "config_adm.yaml"), reqs=reqs,
+                prompted=prompted, prompt_ds=ds, dirs=dirs)
+
+
+def _write_serve_checkpoints(root: str, inputs: dict) -> dict:
+    """Seeded random full-width weights written by the port's checkpoint
+    writer as reference-layout .ckpt files; their sizes and seconds."""
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch import models as m
+    from megatts2_tpu_torch.training.checkpoints import model_state_dict
+
+    gen = torch.Generator().manual_seed(SEED + 32)
+    modules = {"g": m.MegaG(c.load_gan_config(inputs["gan"])[0]),
+               "plm": m.MegaPLM(c.load_plm_config(inputs["plm"])[0]),
+               "adm": m.MegaADM(c.load_adm_config(inputs["adm"])[0]),
+               "hifigan": m.HiFiGAN(c.HiFiGANConfig())}
+    paths = {}
+    t0 = time.perf_counter()
+    for name, module in modules.items():
+        m.init_random_(module, gen)
+        paths[name] = os.path.join(root, f"{name}.ckpt")
+        torch.save({"state_dict": model_state_dict(module), "global_step": 0}, paths[name])
+    sizes = {k: round(os.path.getsize(p) / 2**20, 1) for k, p in paths.items()}
+    print(f"serve: reference-layout checkpoints written in {time.perf_counter() - t0:.1f} s, MiB {sizes}")
+    return paths
+
+
+def _serve_args(inputs: dict, ck: dict, sym: str) -> list:
+    return ["--g_ckpt", ck["g"], "--g_config", inputs["gan"], "--plm_ckpt", ck["plm"],
+            "--plm_config", inputs["plm"], "--adm_ckpt", ck["adm"], "--adm_config", inputs["adm"],
+            "--hifigan_ckpt", ck["hifigan"], "--symbol_table", sym]
+
+
+def _serve_http(argv: list, inputs: dict, n: int = 8) -> dict:
+    """``serve.main --http 0`` in process; n concurrent POSTs and a /healthz."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import megatts2_tpu_torch.serve as serve_mod
+
+    texts = [" ".join(["hello world"] * k) for k in SERVE_REPEATS[:n]]
+    out = {}
+
+    def post(i_text):
+        i, text = i_text
+        body = json.dumps({"text": text, "wavs_dir": inputs["dirs"]["a" if i % 2 else "b"]}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{out['port']}/synthesize", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+
+    def ready(server):
+        try:
+            out["port"] = server.server_address[1]
+            with urllib.request.urlopen(f"http://127.0.0.1:{out['port']}/healthz", timeout=60) as r:
+                out["healthz"] = r.status
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(n) as ex:
+                out["replies"] = list(ex.map(post, enumerate(texts)))
+            out["wall_s"] = time.perf_counter() - t0
+        except BaseException as e:  # raised in the caller
+            out["error"] = e
+        finally:
+            server.shutdown()
+
+    orig = serve_mod.run_http
+    serve_mod.run_http = lambda args, tts: orig(args, tts, _ready_cb=ready)
+    try:
+        serve_mod.main(argv)
+    finally:
+        serve_mod.run_http = orig
+    if "error" in out:
+        raise out["error"]
+    return out
+
+
+def phase_serve(dev: torch.device, card: str, root: str) -> dict:
+    """The full-width serving path in bf16 through ``serve.main`` in process
+    with ``serve.py``'s defaults: batch, --continuous, --continuous with a
+    2048-token prosody prompt, --http.  Kernel A's and B's counters (and B's
+    tensor-core and causal ones) are set to 0 before each mode and read
+    after it; then the stream's time to first chunk."""
+    import io
+
+    from megatts2_tpu_torch.models import megatts_from_pretrained
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.ops import mel
+    from megatts2_tpu_torch.serve import main as serve_main
+
+    root = os.path.join(root, "serve")
+    os.makedirs(root)
+    sym, wavs = _write_prompts(root)
+    inputs = _serve_inputs(root, wavs)
+    ck = _write_serve_checkpoints(root, inputs)
+    base = _serve_args(inputs, ck, sym)
+    out_dir = os.path.join(root, "out")
+    modes = (("batch", ["--requests", inputs["reqs"]]),
+             ("continuous", ["--requests", inputs["reqs"], "--continuous"]),
+             ("continuous prompted", ["--requests", inputs["prompted"], "--continuous",
+                                      "--prompt_ds", inputs["prompt_ds"], "--prompt_tokens",
+                                      str(PREFILL_P)]),
+             ("http", ["--http", "0"]))
+    launches = {}
+    for label, extra in modes:
+        d = os.path.join(out_dir, label.replace(" ", "_"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mel.mel_spectrogram_cuda.launches = 0
+        for name in ("launches", "tc_launches", "causal_launches"):
+            setattr(att.flash_attention_cuda, name, 0)
+        t0 = time.perf_counter()
+        if label == "http":
+            rec = _serve_http(base + extra, inputs)
+            wav_lens = []
+            for status, payload in rec["replies"]:
+                sr, data = wavfile.read(io.BytesIO(payload))
+                check(status == 200 and sr == 16000, f"http: status {status}, sr {sr}")
+                wav_lens.append(len(data))
+            check(rec["healthz"] == 200, "http: /healthz")
+            audio_s = sum(wav_lens) / 16000
+            rec = {"requests": len(wav_lens), "wall_s": rec["wall_s"],
+                   "utt_per_sec": len(wav_lens) / rec["wall_s"], "audio_s": audio_s,
+                   "rtf": rec["wall_s"] / audio_s, "load_s": None}
+        else:
+            rec = serve_main(base + extra + ["--out_dir", d])
+            names = sorted(os.listdir(d))
+            check(names == [f"u{i:02d}.wav" for i in range(len(SERVE_REPEATS))],
+                  f"{label}: wavs {names}")
+            wav_lens = [len(wavfile.read(os.path.join(d, n))[1]) for n in names]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {"mel": mel.mel_spectrogram_cuda.launches, "flash": att.flash_attention_cuda.launches,
+             "flash_tc": att.flash_attention_cuda.tc_launches,
+             "flash_causal": att.flash_attention_cuda.causal_launches}
+        launches[label] = n
+        check(n["mel"] > 0 and n["flash"] > 0 and n["flash_tc"] > 0,
+              f"serve {label}: a kernel was not launched: {n}")
+        if label == "continuous prompted":
+            check(n["flash_causal"] > 0, f"serve {label}: kernel B causal (the prefill) not launched")
+        check(all(0 < x <= 1024 * 256 and x % 256 == 0 for x in wav_lens),
+              f"serve {label}: wav lengths {wav_lens}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        load = "" if rec["load_s"] is None else f", checkpoints loaded in {rec['load_s']:.1f} s"
+        print(f"serve {label}: {rec['requests']} requests, wall {rec['wall_s']:.3f} s ({wall:.1f} s "
+              f"for the mode{load}), {rec['utt_per_sec']:.3f} utt/s, audio {rec['audio_s']:.2f} s, "
+              f"RTF {rec['rtf']:.4f}, peak memory {peak:.2f} GiB, launches {n}, frames "
+              f"{[x // 256 for x in wav_lens]} [{card}]")
+    # the stream's time to first chunk, warm (the second of two streams)
+    t0 = time.perf_counter()
+    tts = megatts_from_pretrained(ck["g"], inputs["gan"], ck["plm"], inputs["plm"], ck["adm"],
+                                  inputs["adm"], sym, hifigan_ckpt=ck["hifigan"], max_frames=1024,
+                                  device=dev)
+    print(f"serve: megatts_from_pretrained loaded in {time.perf_counter() - t0:.1f} s")
+    text = " ".join(["hello world"] * 32)
+    ttfc = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = tts.stream(inputs["dirs"]["a"], text, chunk_frames=128)
+        first = next(chunks)
+        ttfc.append(time.perf_counter() - t0)
+        rest = list(chunks)
+    lens = [len(c) for c in [first] + rest]
+    check(all(n == 128 * 256 for n in lens[:-1]) and 0 < lens[-1] <= 128 * 256
+          and lens[-1] % 256 == 0 and all(np.isfinite(c).all() for c in [first] + rest),
+          f"stream: chunk lengths {lens} or non-finite")
+    print(f"serve stream: time to first chunk ({lens[0] // 256} frames) {ttfc[1] * 1e3:.1f} ms warm, "
+          f"{ttfc[0] * 1e3:.1f} ms cold, {len(lens)} chunks, {sum(lens) // 256} frames [{card}]")
+    del tts
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1400,23 +1805,35 @@ def phase_vocoder_train(dev: torch.device, card: str, root: str) -> dict:
     return launches
 
 
+def _timed(name: str, fn, *args):
+    """fn(*args), with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
     dev = torch.device("cuda")
-    phase_build()
-    k = phase_kernels(dev, card)
-    phase_reference(dev)
+    _timed("build", phase_build)
+    k = _timed("kernels", phase_kernels, dev, card)
+    _timed("kernels (serving head dims, prefill)", phase_kernels_serving, dev, card, k)
+    _timed("reference", phase_reference, dev)
     with tempfile.TemporaryDirectory() as root:
-        slices = phase_slice(dev, card, root)
-        pump_launches = phase_bandwidth(card)
-        phase_train_reference(dev)
-        train = phase_train(dev, card, root)
-        phase_gan_reference(dev)
-        gan = phase_gan_train(dev, card, root)
-        phase_vocoder_reference(dev)
-        vocoder = phase_vocoder_train(dev, card, root)
+        slices = _timed("slice", phase_slice, dev, card, root)
+        _timed("serve reference", phase_serve_reference, dev, root)
+        serve = _timed("serve", phase_serve, dev, card, root)
+        pump_launches = _timed("bandwidth", phase_bandwidth, card)
+        _timed("train reference", phase_train_reference, dev)
+        train = _timed("train", phase_train, dev, card, root)
+        _timed("GAN reference", phase_gan_reference, dev)
+        gan = _timed("GAN train", phase_gan_train, dev, card, root)
+        _timed("vocoder reference", phase_vocoder_reference, dev)
+        vocoder = _timed("vocoder train", phase_vocoder_train, dev, card, root)
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
+    served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
 
     def _ms(us):
         return None if us is None else us / 1e3
@@ -1431,9 +1848,10 @@ def main() -> None:
 
     record = {"kernels": [
         row("mel_spectrogram", "mel.cu", "megatts2_tpu/ops/mel.py:190", "mel", "mel",
-            synth["mel"] + vocoder["mel"],
+            synth["mel"] + served["mel"] + vocoder["mel"],
             "(8, 131000) fp32", library="torch.stft + filterbank matmul + log (composite)",
             launches_by_path={**{label: s["mel"] for label, s in slices.items()},
+                              **{f"serve {label}": s["mel"] for label, s in serve.items()},
                               "vocoder": vocoder["mel"]},
             device_ms=_ms(k["split"]["mel"]["device_us"]), host_ms=k["split"]["mel"]["host_us"] / 1e3,
             device_ms_prompt=_ms(k["split"]["mel_prompt"]["device_us"]),
@@ -1448,11 +1866,18 @@ def main() -> None:
             device_ms=_ms(k["split"]["mel_bwd"]["device_us"]),
             host_ms=k["split"]["mel_bwd"]["host_us"] / 1e3),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
-            "flash_plm", "flash", synth["flash"] + train["flash"] + gan["flash"],
+            "flash_plm", "flash", synth["flash"] + served["flash"] + train["flash"] + gan["flash"],
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
             launches_by_path={**{label: s["flash"] for label, s in slices.items()},
+                              **{f"serve {label}": s["flash"] for label, s in serve.items()},
                               "train": train["flash"], "gan": gan["flash"]},
-            tc_launches=synth["flash_tc"] + train["flash_tc"] + gan["flash_tc"],
+            tc_launches=synth["flash_tc"] + served["flash_tc"] + train["flash_tc"] + gan["flash_tc"],
+            causal_launches_serve_prompted=serve["continuous prompted"]["flash_causal"],
+            ms_dh96=k["ms"]["dh96"][0], plain_ms_dh96=k["ms"]["dh96"][1],
+            bound_ms_dh96=k["bound"]["dh96"][0], library_ms_dh96=k["lib"]["dh96"],
+            ms_prefill_2048=k["ms"]["prefill_2048"][0], plain_ms_prefill_2048=k["ms"]["prefill_2048"][1],
+            bound_ms_prefill_2048=k["bound"]["prefill_2048"][0],
+            library_ms_prefill_2048=k["lib"]["prefill_2048"],
             ms_simt=k["simt"]["flash_plm"],
             tflops=k["tflops"]["flash_plm"],
             ms_mrte=k["ms"]["flash"][0], plain_ms_mrte=k["ms"]["flash"][1],

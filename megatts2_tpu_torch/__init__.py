@@ -11,7 +11,11 @@ decoder, the HiFi-GAN and Vocos vocoders), its serving options (the int8
 / int4 weight-only PLM of ``quantization.weight_only``, temperature /
 top-k sampling, the prompt prefill), PLM / ADM training (``training``:
 the teacher-forced forwards, the losses, AdamW with its schedule and the
-train loop) and the bandwidth tool (``tools.bw_ceiling``).  Four
+train loop), the VQ-GAN and vocoder training stages, the bandwidth tool
+(``tools.bw_ceiling``), and serving: reference-layout checkpoints
+(``training.checkpoints``, ``models.pretrained``), streaming
+(``models.streaming``), the continuous slot engine (``continuous``) and
+the ``serve`` and ``infer`` entry points.  Four
 hand-written CUDA kernels carry them on an NVIDIA Hopper card
 (``csrc/``): the log-mel front-end, the masked attention forward and
 backward, and the device-memory copy pump.  On CPU tensors every op takes

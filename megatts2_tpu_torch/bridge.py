@@ -149,3 +149,65 @@ def load_flax_params(module: nn.Module, flax_tree: dict) -> nn.Module:
     if missing:
         raise KeyError(f"{type(module).__name__}: not filled from the flax tree: {missing}")
     return module
+
+
+# ------------------------------------------------------------- the inverse
+
+
+def _leaves(module: nn.Module) -> tuple[dict, dict]:
+    """(params, persistent buffers) of ``module`` itself in flax names and layouts."""
+    if isinstance(module, QuantLinear):
+        raise TypeError("export_flax_params: a quantized layer has no float weights to export")
+    p = {k: v for k, v in module._parameters.items() if v is not None}
+    out = {}
+    if isinstance(module, nn.Linear):
+        out["kernel"] = p.pop("weight").T
+    elif isinstance(module, nn.Conv1d):
+        out["kernel"] = p.pop("weight").permute(2, 1, 0)
+    elif isinstance(module, nn.Conv2d):
+        out["kernel"] = p.pop("weight").permute(2, 3, 1, 0)
+    elif isinstance(module, nn.ConvTranspose1d):
+        out["kernel"] = p.pop("weight").permute(2, 0, 1).flip(0)
+    elif isinstance(module, nn.LayerNorm):
+        out["scale"] = p.pop("weight")
+    elif isinstance(module, nn.Embedding):
+        out["embedding"] = p.pop("weight")
+    out.update(p)
+    bufs = {k: b for k, b in module._buffers.items()
+            if b is not None and k not in module._non_persistent_buffers_set}
+    as_np = lambda d: {k: v.detach().float().cpu().numpy() for k, v in d.items()}  # noqa: E731
+    return as_np(out), as_np(bufs)
+
+
+def _export(module: nn.Module) -> tuple[dict, dict]:
+    params, stats = _leaves(module)
+    for name, child in module._modules.items():
+        kids = ([(f"{name}_{i}", c) for i, c in enumerate(child)]
+                if isinstance(child, nn.ModuleList) else [(name, child)])
+        for key, c in kids:
+            cp, cs = _export(c)
+            if key == "qkv" and "kernel" in cp:  # the merged decode projection → w_q, w_k, w_v
+                for j, part in enumerate(("w_q", "w_k", "w_v")):
+                    params[part] = {k: np.split(v, 3, axis=-1)[j] for k, v in cp.items()}
+                continue
+            if cp:
+                params[key] = cp
+            if cs:
+                stats[key] = cs
+    return params, stats
+
+
+def export_flax_params(module: nn.Module) -> dict:
+    """The inverse of :func:`load_flax_params`: ``module``'s weights as the
+    flax tree the JAX package builds (the same collections, Dense and conv
+    kernels in flax's layouts, the merged ``qkv`` split into ``w_q``,
+    ``w_k`` and ``w_v``), fp32 numpy leaves.  ``ModuleList`` children come
+    out unstacked (``name_<i>``), which the bridge and ``convert`` read
+    whatever the JAX layout's ``scan_layers``/``scan_stacks``."""
+    params, stats = _export(module)
+    names = _COLLECTIONS.get(type(module))
+    if names is None:
+        if stats:
+            raise KeyError(f"{type(module).__name__}: buffers outside its flax params: {list(stats)}")
+        return params
+    return {names[0]: params, names[1]: stats}

@@ -50,9 +50,11 @@
 //    * Query tiles are launched longest (causal) first in pass 1; pass 2's
 //      low key tiles, the longest, come first already.
 //
-// 2. fp32 (all head dims) and bf16 at Dh 256 — the SIMT path, the first
-//    version (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel): FMA issue and
-//    the shared-memory reads feeding it bound it.  fp32 keeps full-fp32 products (TF32
+// 2. fp32 (all head dims) and bf16 at Dh 96 and 256 — the SIMT path, the
+//    first version (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel; instances
+//    at Dh 64, 96, 128 and 256, the wrapper zero-padding other head dims
+//    and passing the true Dh's scale): FMA issue and the shared-memory
+//    reads feeding it bound it.  fp32 keeps full-fp32 products (TF32
 //    wgmma would not).  The design:
 //    * Pass 1, one block per (b, h, 16 query rows), 4 warps of 4 rows, lane j
 //      owning key j of a 32-key tile (kernel B's layout).  Sweep A over the
@@ -401,6 +403,8 @@ cudaError_t dispatch_dh(int Dh, const Args& a, cudaStream_t stream) {
   switch (Dh) {
     case 64:
       return launch<T, 64>(a, stream);
+    case 96:
+      return launch<T, 96>(a, stream);
     case 128:
       return launch<T, 128>(a, stream);
     case 256:

@@ -50,9 +50,11 @@
 //      KB + 2 stages of K 32 + V 16 KB.  Only the first half writes m and l
 //      (both compute the same); no atomics, deterministic.
 //
-// 2. fp32 (all head dims) — the SIMT path, the first version
-//    (flash_fwd_kernel); bf16 reaches it only when the caller asks (simt),
-//    to compare the two.  fp32 keeps full-fp32 products (TF32 wgmma would
+// 2. fp32 (all head dims) and bf16 at Dh 96 — the SIMT path, the first
+//    version (flash_fwd_kernel); other bf16 reaches it only when the caller
+//    asks (simt), to compare the two.  Instances at Dh 64, 96, 128 and 256;
+//    the wrapper zero-pads any other head dim up to 256 to the next one and
+//    passes the true Dh's scale.  fp32 keeps full-fp32 products (TF32 wgmma would
 //    not).  What bounds it: at short sequences launch latency and the
 //    dependent chain of shared-memory reads (at the MRTE's (8, 64, 2, 256)
 //    bf16, ~31 us of device time on an H100); at long sequences FMA issue.
@@ -266,6 +268,9 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
   switch (Dh) {
     case 64:
       return launch<T, 64>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
+                           causal, scale, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
                            causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
@@ -525,8 +530,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
 // q (B, Tq, H, Dh), k and v (B, Tk, H, Dh), o (B, Tq, H, Dh): element strides
 // over (b, t, h), unit stride over Dh.  k_lens is (B,) int32 or null (all
 // keys valid).  is_bf16 selects __nv_bfloat16 over float for all four: 1
-// takes the tensor-core path at every head dim (bf16 tensors with 16-byte
-// aligned bases and strides); 2 takes the SIMT path, to compare the two.  m_out and l_out are (B, H,
+// takes the tensor-core path at Dh 64, 128 and 256 (bf16 tensors with 16-byte
+// aligned bases and strides); 2 takes the SIMT path, to compare the two, and
+// at Dh 96.  scale is the softmax scale (the caller's true Dh^-0.5).  m_out and l_out are (B, H,
 // Tq) fp32 for the row max and sum, or both null.
 extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                  const int* k_lens, void* o, float* m_out, float* l_out,

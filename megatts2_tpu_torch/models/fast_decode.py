@@ -1,6 +1,7 @@
 """The PLM's and ADM's decoder layers: the KV-cached decode loops (port of
 ``megatts2_tpu/models/fast_decode.py``: greedy or temperature / top-k
-sampling, optionally after a prompt prefilled into the caches) and the
+sampling, optionally after a prompt prefilled into the caches; the
+per-slot tick of the continuous engine, :func:`plm_fast_tick`) and the
 full-sequence forward that training and the prompt prefill run (port of
 the linear-FF ``TransformerEncoderLayer`` of ``megatts2_tpu/nn/transformer.py``).
 
@@ -43,7 +44,7 @@ from ..nn.dropout import Draws, dropout
 from ..nn.layers import layer_norm, linear
 from ..nn.transformer import attend
 from ..ops.attention import flash_attention
-from ..ops.masks import causal_mask, make_attn_mask
+from ..ops.masks import NEG_INF, causal_mask, make_attn_mask
 from ..quantization.weight_only import QuantLinear, qdense
 
 
@@ -120,6 +121,32 @@ class DecoderLayer(nn.Module):
         return x + dense(self.ff_linear2, F.relu(dense(self.ff_linear1, self.norm2(x))))
 
 
+    def step_slots(self, x: torch.Tensor, ckv: torch.Tensor, p_abs: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+        """The per-slot step: row s at its own absolute position
+        ``p_abs[s]``.  Writes each row's k and v into ``ckv`` (S, L, 2D) at
+        its position (``index_put_``) and attends cache positions
+        ``<= p_abs[s]`` of the whole cache, masked additively with -1e9 as
+        JAX's ``_attend_cached_slots`` (the masked weights are exactly 0).
+        ``rows`` is ``arange(S)`` on the device."""
+        S, D = x.shape
+        H = self.attn.n_heads
+        dh = D // H
+        L = ckv.shape[1]
+        qkv = dense(self.attn.qkv, self.norm1(x))
+        ckv.index_put_((rows, p_abs), qkv[:, D:])
+        q = qkv[:, :D].view(S, H, 1, dh)
+        k = ckv[:, :, :D].view(S, L, H, dh).transpose(1, 2)
+        v = ckv[:, :, D:].view(S, L, H, dh).transpose(1, 2)
+        logits = (q.float() @ k.float().transpose(-1, -2)) * dh**-0.5  # (S, H, 1, L)
+        keep = torch.arange(L, device=x.device)[None, :] <= p_abs[:, None]
+        mask = torch.where(keep, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+        probs = torch.softmax(logits + mask, dim=-1).to(x.dtype)
+        ctx = (probs @ v).reshape(S, D)
+        x = x + dense(self.attn.out_proj, ctx)
+        return x + dense(self.ff_linear2, F.relu(dense(self.ff_linear1, self.norm2(x))))
+
+
 class DecoderStack(nn.Module):
     def __init__(
         self, dim: int, ff_dim: int, num_layers: int, n_heads: int, dropout: float = 0.0,
@@ -175,6 +202,41 @@ class DecoderStack(nn.Module):
         for layer, ckv in zip(self.layers, caches):
             x = layer.step(x, ckv, t)
         return x
+
+
+def plm_fast_tick(
+    model,
+    tc_plm: torch.Tensor,  # (S, Tc, D_tc) in the compute dtype
+    caches: list[torch.Tensor],  # per layer (S, Tc + Pe, 2D)
+    codes: torch.Tensor,  # (S, Tc) int64, updated in place
+    prev: torch.Tensor,  # (S,) int64 last code of each slot
+    pos: torch.Tensor,  # (S,) int64 generated-code position
+    plen: torch.Tensor,  # (S,) int64 prompt length (cache offset)
+    total: torch.Tensor,  # (S,) int64 codes each slot generates
+    K: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance every slot K greedy prosody codes (port of JAX
+    ``fast_decode.plm_fast_tick``): row s decodes at position
+    ``min(pos[s], Tc - 1)``, absolute cache position ``+ plen[s]``.  A
+    finished slot (``pos >= total``) freezes its codes, ``prev`` and
+    ``pos``; its cache keeps taking junk writes at the clamped last
+    position, which nothing reads.  Returns the new ``(prev, pos)``."""
+    S, Tc, _ = tc_plm.shape
+    rows = torch.arange(S, device=tc_plm.device)
+    dtype = model.plm.dtype
+    for _ in range(K):
+        p = pos.clamp(max=Tc - 1)
+        p_abs = p + plen
+        x = torch.cat([tc_plm[rows, p].to(dtype), model.pc_embedding(prev).to(dtype)], dim=-1)
+        x = x + model.pe[p_abs].to(dtype)
+        for layer, ckv in zip(model.plm.layers, caches):
+            x = layer.step_slots(x, ckv, p_abs, rows)
+        code = dense(model.predict_layer, x).float().argmax(dim=-1)
+        live = pos < total
+        codes[rows, p] = torch.where(live, code, codes[rows, p])
+        prev = torch.where(live, code, prev)
+        pos = torch.where(live, pos + 1, pos)
+    return prev, pos
 
 
 def plm_decode_step(

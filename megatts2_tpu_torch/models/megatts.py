@@ -230,8 +230,22 @@ class Megatts:
         ]
         return np.array(ids, dtype=np.int64)
 
+    def prompt_mel(self, wavs_dir: str) -> tuple[torch.Tensor, Optional[np.ndarray]]:
+        """(mel (Tm, 80) on the device, the first prompt's waveform): one
+        log-mel per ``*.wav`` of ``wavs_dir`` (kernel A on the card, each
+        reflect-padded on its own), joined along time."""
+        mels, first = [], None
+        for w in sorted(glob.glob(os.path.join(wavs_dir, "*.wav"))):
+            y = peak_normalize(load_wav(w, HIFIGAN_SR))
+            first = y if first is None else first
+            mels.append(mel_spectrogram(torch.from_numpy(y).to(self.device)))
+        if not mels:
+            raise FileNotFoundError(f"no *.wav under {wavs_dir}")
+        return torch.cat(mels, dim=0), first
+
     def _synthesize(self, phone: torch.Tensor, lens: torch.Tensor, mels: torch.Tensor,
-                    prompt_features: Optional[tuple], stage_times: Optional[dict]):
+                    prompt_features: Optional[tuple], stage_times: Optional[dict],
+                    max_frames: Optional[int] = None):
         """``synthesize`` with this instance's models and PLM options;
         ``prompt_features`` (tc (1|B, P, D), codes (1|B, P)) are broadcast
         to the batch."""
@@ -242,7 +256,8 @@ class Megatts:
             prompt = dict(plm_prompt_tc=tc.float().expand(B, *tc.shape[1:]),
                           plm_prompt_codes=codes.long().expand(B, *codes.shape[1:]))
         return synthesize(
-            self.g, self.plm, self.adm, self.vocoder, phone, lens, mels, self.max_frames,
+            self.g, self.plm, self.adm, self.vocoder, phone, lens, mels,
+            max_frames or self.max_frames,
             quant=self.quant_int8, plm_temperature=self.plm_temperature,
             plm_top_k=self.plm_top_k, generator=self.generator, stage_times=stage_times,
             **prompt,
@@ -254,12 +269,14 @@ class Megatts:
         mels_prompt,  # (B, Tm, 80) per-utterance prompt mels, numpy or tensor
         stage_times: Optional[dict] = None,
         prompt_features: Optional[tuple] = None,  # (tc (1|B, P, D), codes (1|B, P))
+        max_frames: Optional[int] = None,
     ) -> list:
         """Batched synthesis: phone sequences padded to a multiple of 16,
         one cascade for the whole batch, per-utterance trimmed waveforms.
         ``stage_times`` as in :func:`synthesize`; ``prompt_features`` is an
         in-context prosody prompt of one length, one shared by the batch
-        when its leading dim is 1."""
+        when its leading dim is 1; ``max_frames`` overrides the instance's
+        frame budget (``serve.py``'s length buckets)."""
         ids = [self.phone_ids(t) for t in texts]
         B = len(ids)
         Tp = -(-max(len(i) for i in ids) // 16) * 16
@@ -270,7 +287,7 @@ class Megatts:
         mels = torch.as_tensor(mels_prompt, dtype=torch.float32).to(self.device)
         wav, _, n_frames = self._synthesize(
             torch.from_numpy(phone).to(self.device), torch.from_numpy(lens).to(self.device),
-            mels, prompt_features, stage_times,
+            mels, prompt_features, stage_times, max_frames,
         )
         wav = wav.cpu().numpy()
         n = n_frames.cpu().numpy()
@@ -282,16 +299,8 @@ class Megatts:
         along time; the generated speech is appended to the first prompt.
         ``prompt_features`` (tc (1, P, D), codes (1, P)) is an optional
         in-context prosody prompt for the PLM."""
-        wavs = sorted(glob.glob(os.path.join(wavs_dir, "*.wav")))
-        mels = []
-        prompt_wav = None
-        for w in wavs:
-            y = peak_normalize(load_wav(w, HIFIGAN_SR))
-            if prompt_wav is None:
-                prompt_wav = y
-            mels.append(mel_spectrogram(torch.from_numpy(y).to(self.device)))
-        mel_prompt = torch.cat(mels, dim=0)[None]  # (1, Tm, 80)
-
+        mel, prompt_wav = self.prompt_mel(wavs_dir)
+        mel_prompt = mel[None]  # (1, Tm, 80)
         ids = torch.from_numpy(self.phone_ids(text))[None].to(self.device)
         lens = torch.tensor([ids.shape[1]], device=self.device)
         wav, _, n_frames = self._synthesize(ids, lens, mel_prompt, prompt_features, None)
@@ -300,3 +309,20 @@ class Megatts:
         full = np.concatenate([prompt_wav, gen]) if prompt_wav is not None else gen
         save_wav(out_path, full, HIFIGAN_SR)
         return full
+
+    def stream(self, wavs_dir: str, text: str, chunk_frames: int = 256,
+               max_frames: Optional[int] = None):
+        """Streaming synthesis: waveform chunks (fp32 numpy, ``chunk_frames``
+        × hop samples) as soon as the prosody codes they depend on exist
+        (``models/streaming.py``); concatenated they equal the one-shot
+        ``synthesize`` at the stream's frame budget.  Greedy, or sampled
+        with this instance's temperature, top-k and generator."""
+        from .streaming import stream_synthesize
+
+        mel, _ = self.prompt_mel(wavs_dir)
+        ids = torch.from_numpy(self.phone_ids(text))[None].to(self.device)
+        lens = torch.tensor([ids.shape[1]], device=self.device)
+        yield from stream_synthesize(
+            self.g, self.plm, self.adm, self.vocoder, ids, lens, mel[None],
+            max_frames or self.max_frames, chunk_frames, self.plm_temperature, self.plm_top_k,
+            self.generator)

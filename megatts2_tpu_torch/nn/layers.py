@@ -9,9 +9,9 @@ parameters.
 
 On a module already cast to x's dtype (the synthesis path) the casts are
 no-ops, and LayerNorm is PyTorch's one kernel, which accumulates a bf16
-input's statistics in fp32 itself (the four casts around it cost more
-launches than the kernel, on a host-bound path); in training they let bf16
-compute run over fp32 master weights.
+input's statistics in fp32 itself and rounds once, as flax does (the four
+casts around it cost more launches than the kernel, on a host-bound path);
+in training they let bf16 compute run over fp32 master weights.
 """
 from __future__ import annotations
 
@@ -29,14 +29,15 @@ def product_then_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torc
                       product: Callable, channel_dim: int = -1) -> torch.Tensor:
     """``product(w, b)`` with the weight and bias cast to x's dtype; its
     output's channels lie along ``channel_dim`` (channels-last by
-    default).  Over weights of x's dtype it is one fused call.  Over
-    weights of another dtype (bf16 compute over fp32 masters) the product
-    is rounded to x's dtype and the bias added after it, as flax's
-    ``Dense`` and ``Conv`` with ``dtype=`` round: a fused bias rounds once,
-    and that one ulp, grown through the GAN generator's layers, is as large
-    as bf16's whole noise there."""
+    default).  In fp32 (or fp64) it is one fused call.  Below fp32 (bf16
+    compute, over fp32 masters in training or over weights cast to bf16
+    for synthesis) the product is rounded to x's dtype and the bias added
+    after it, as flax's ``Dense`` and ``Conv`` with ``dtype=`` round: a
+    fused bias rounds once, and that one ulp, grown through the GAN
+    generator's layers or fed back through a decode loop, is as large as
+    bf16's whole noise there."""
     w = weight.to(x.dtype)
-    if bias is None or weight.dtype == x.dtype:
+    if bias is None or x.dtype in (torch.float32, torch.float64):
         return product(w, None if bias is None else bias.to(x.dtype))
     y = product(w, None)
     shape = [1] * y.dim()

@@ -17,8 +17,10 @@ the output is in q's dtype.
   B (``csrc/flash_attn_fwd.cu``) and kernel C (``csrc/flash_attn_bwd.cu``).
   bf16 takes their tensor-core path (``wgmma`` and TMA loads): the
   forward at head dims 64, 128 and 256 (:func:`fwd_uses_tensor_cores`),
-  the backward at 64 and 128 (:func:`bwd_uses_tensor_cores`); fp32, and
-  the backward at 256, their SIMT path.  The tensor-core path's forward
+  the backward at 64 and 128 (:func:`bwd_uses_tensor_cores`); fp32, bf16
+  at head dim 96 and the backward at 256, their SIMT path.  Any other head
+  dim from 1 to 256 runs zero-padded to the next instance
+  (:func:`instance_head_dim`, :func:`pad_head_dim`) at its own scale.  The tensor-core path's forward
   splits P into bf16 hi + lo parts for P V (the row sum stays fp32).  TMA
   reads a tensor only from a 16-byte-aligned base with 16-byte strides
   (:func:`tma_aligned`).  The C launcher checks that rule before it
@@ -39,19 +41,42 @@ import torch
 
 from .masks import NEG_INF
 
-HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
+HEAD_DIMS = (64, 96, 128, 256)  # the kernels' template instances
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 # bf16 head dims of kernel C's tensor-core path: 64 and 128.  At head dim 256
 # (the MRTE's phone encoder, trained by the GAN step with use_flash) kernel C
 # runs its SIMT path, a small share of that step (PERF.md §6); kernel B's
 # forward has the tensor-core path at every head dim
 TC_BWD_HEAD_DIMS = (64, 128)
+# kernel B's tensor-core path: head dim 96 (the ADM at tc_emb_dim 512) has
+# the SIMT instance only
+TC_FWD_HEAD_DIMS = (64, 128, 256)
+
+
+def instance_head_dim(head_dim: int) -> int:
+    """The kernel instance a head dim runs on: the smallest of
+    :data:`HEAD_DIMS` that holds it.  Any other head dim up to 256 is
+    zero-padded to it (:func:`pad_head_dim`); above 256 there is none."""
+    for d in HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(f"head dim {head_dim} above {MAX_HEAD_DIM}: no kernel instance holds it")
+
+
+def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """t (..., Dh) zero-padded to (..., dim), or t itself when Dh == dim.
+    Zero columns of q and k add nothing to q.k, zero columns of v (and of
+    the cotangent g) give zero columns of the output (and of dq, dk, dv),
+    which the wrappers cut off; the scale stays that of the true Dh."""
+    pad = dim - t.shape[-1]
+    return t if pad == 0 else torch.nn.functional.pad(t, (0, pad))
 
 
 def fwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether kernel B takes its tensor-core path (``wgmma``, TMA) for this
     dtype and head dim: bf16 at every head dim it has; otherwise its SIMT
     path runs."""
-    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS
+    return dtype == torch.bfloat16 and head_dim in TC_FWD_HEAD_DIMS
 
 
 def bwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
@@ -101,12 +126,14 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
-def _masked_logits(q, k, k_lens, causal) -> torch.Tensor:
-    """where(mask, Q K^T * scale, -1e9), (B, H, Tq, Tk) in the accumulation dtype."""
+def _masked_logits(q, k, k_lens, causal, scale) -> torch.Tensor:
+    """where(mask, Q K^T * scale, -1e9), (B, H, Tq, Tk) in the accumulation dtype;
+    the scale is Dh^-0.5 unless given."""
     B, Tq, _, Dh = q.shape
     Tk = k.shape[1]
     acc = _acc_dtype(q)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * (Dh**-0.5)
+    scale = Dh**-0.5 if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     kpos = torch.arange(Tk, device=q.device)
     if k_lens is None:
         mask = torch.ones(B, 1, 1, Tk, dtype=torch.bool, device=q.device)
@@ -125,10 +152,11 @@ def flash_attention_plain(
     k_lens: Optional[torch.Tensor] = None,  # (B,) valid key lengths
     causal: bool = False,
     return_stats: bool = False,
+    scale: Optional[float] = None,  # Dh^-0.5 by default
 ):
     """Masked attention in plain PyTorch ops; output (B, Tq, H, Dh) in q.dtype,
     with ``return_stats`` also the row max and row sum (B, H, Tq)."""
-    logits = _masked_logits(q, k, k_lens, causal)
+    logits = _masked_logits(q, k, k_lens, causal, scale)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     denom = p.sum(dim=-1, keepdim=True)
@@ -146,13 +174,14 @@ def flash_attention_bwd_plain(
     g: torch.Tensor,  # (B, Tq, H, Dh) cotangent of the output
     m: torch.Tensor,  # (B, H, Tq) row max from the forward
     l: torch.Tensor,  # (B, H, Tq) row sum from the forward
+    scale: Optional[float] = None,  # Dh^-0.5 by default
 ):
     """(dq, dk, dv) as ``_fa_bwd`` computes them: P = exp(s - m) / l in fp32,
     P rounded to q's dtype for P^T g, D = rowsum(dp * P) from the fp32 P and
     dp, ds = P (dp - D) rounded to q's dtype for the dq and dk products."""
     acc = _acc_dtype(q)
-    scale = q.shape[-1] ** -0.5
-    p = torch.exp(_masked_logits(q, k, k_lens, causal) - m[..., None].to(acc)) / l[..., None].to(acc)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p = torch.exp(_masked_logits(q, k, k_lens, causal, scale) - m[..., None].to(acc)) / l[..., None].to(acc)
     g32 = g.to(acc)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(acc), g32)
     dp = torch.einsum("bqhd,bkhd->bhqk", g32, v.to(acc))
@@ -174,8 +203,8 @@ def _check_qkv(q, k, v, k_lens, what: str) -> None:
     B, Tq, H, Dh = q.shape
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, Dh):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
+    if not 1 <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {Dh} outside 1..{MAX_HEAD_DIM}: no kernel instance holds it")
     if Tq == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -211,11 +240,15 @@ def flash_attention_cuda(
     """Kernel B (``csrc/flash_attn_fwd.cu``).  Reads q, k, v in place through
     their strides; each needs unit stride over Dh.  With ``return_stats``
     also returns the row max and row sum, fp32 (B, H, Tq).  ``simt`` runs
-    the SIMT path whatever the dtype and head dim, to compare the two."""
+    the SIMT path whatever the dtype and head dim, to compare the two.  A
+    head dim that is no kernel instance runs zero-padded to the next one
+    (:func:`instance_head_dim`) at the scale of its own."""
     _check_qkv(q, k, v, k_lens, "flash_attention_cuda")
     from ..csrc.build import check, load_library
 
-    B, Tq, H, Dh = q.shape
+    B, Tq, H, dh = q.shape
+    Dh = instance_head_dim(dh)
+    q, k, v = (pad_head_dim(t, Dh) for t in (q, k, v))
     tc = fwd_uses_tensor_cores(q.dtype, Dh) and not simt
     lib = load_library()
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
@@ -229,7 +262,7 @@ def flash_attention_cuda(
         with torch.cuda.device(q.device):
             return lib.mt_flash_attn_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_lens), out.data_ptr(),
-                _ptr(m), _ptr(l), B, Tq, k.shape[1], H, Dh, *strides, int(causal), Dh**-0.5,
+                _ptr(m), _ptr(l), B, Tq, k.shape[1], H, Dh, *strides, int(causal), dh**-0.5,
                 _dtype_code(q, not tc), torch.cuda.current_stream().cuda_stream,
             )
 
@@ -237,11 +270,14 @@ def flash_attention_cuda(
     check(err, "flash attention kernel")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.tc_launches += int(tc)
+    flash_attention_cuda.causal_launches += int(causal)
+    out = out[..., :dh]
     return (out, m, l) if return_stats else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.tc_launches = 0  # launches of the tensor-core path
+flash_attention_cuda.causal_launches = 0  # causal launches (the prompt prefill, PLM training)
 flash_attention_cuda.layout_copies = 0
 
 
@@ -260,9 +296,10 @@ def flash_attention_bwd_cuda(
     """Kernel C (``csrc/flash_attn_bwd.cu``): (dq, dk, dv) in q's dtype.
     q, k, v and g are read in place through their strides (unit stride over
     Dh; g is made contiguous otherwise); m and l are kernel B's statistics.
-    ``simt`` runs the SIMT path whatever the dtype and head dim."""
+    ``simt`` runs the SIMT path whatever the dtype and head dim.  Other
+    head dims run zero-padded, as the forward's."""
     _check_qkv(q, k, v, k_lens, "flash_attention_bwd_cuda")
-    B, Tq, H, Dh = q.shape
+    B, Tq, H, dh = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"g must match q: {tuple(g.shape)} {g.dtype} vs {tuple(q.shape)} {q.dtype}")
     for name, t in (("m", m), ("l", l)):
@@ -271,6 +308,8 @@ def flash_attention_bwd_cuda(
             raise ValueError(f"{name} must be a contiguous (B, H, Tq) float32 tensor on q's device")
     if g.stride(-1) != 1:
         g = g.contiguous()
+    Dh = instance_head_dim(dh)
+    q, k, v, g = (pad_head_dim(t, Dh) for t in (q, k, v, g))
     tc = bwd_uses_tensor_cores(q.dtype, Dh) and not simt
     from ..csrc.build import check, load_library
 
@@ -288,7 +327,7 @@ def flash_attention_bwd_cuda(
             return lib.mt_flash_attn_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(k_lens),
                 m.data_ptr(), l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), B, Tq, k.shape[1], H, Dh, strides, int(causal), Dh**-0.5,
+                dv.data_ptr(), B, Tq, k.shape[1], H, Dh, strides, int(causal), dh**-0.5,
                 _dtype_code(q, not tc), torch.cuda.current_stream().cuda_stream,
             )
 
@@ -296,7 +335,7 @@ def flash_attention_bwd_cuda(
     check(err, "flash attention backward kernel")
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.tc_launches += int(tc)
-    return dq, dk, dv
+    return dq[..., :dh], dk[..., :dh], dv[..., :dh]
 
 
 flash_attention_bwd_cuda.launches = 0

@@ -45,10 +45,12 @@ def _lens(B, Tk):
 # (B, Tq, H, Dh[, Tk]): the tensor-core path's edges at Dh 64 (Tq of 1, 32,
 # 300 and 1000 inside 64-row tiles; one query row against 70 keys), Dh 128,
 # and Dh 256, where two blocks split the output columns: the MRTE's (8, 64,
-# 2, 256) and (1, 3, 2, 256), several key tiles, one row against 70 keys
+# 2, 256) and (1, 3, 2, 256), several key tiles, one row against 70 keys;
+# then head dims that are no tensor-core instance: 96 (the ADM at tc_emb_dim
+# 512, the SIMT instance) and 80 and 33, zero-padded to 96 and 64
 FLASH_SHAPES = [(8, 64, 2, 256), (4, 1, 2, 64, 70), (4, 32, 2, 64), (4, 300, 2, 64),
                 (2, 1000, 16, 64), (3, 77, 4, 128), (1, 3, 2, 256), (2, 300, 4, 256),
-                (4, 1, 2, 256, 70)]
+                (4, 1, 2, 256, 70), (8, 64, 8, 96), (2, 50, 3, 80), (3, 70, 2, 33)]
 
 
 def _qkv(shape, n, g, dev, dtype):
@@ -144,7 +146,7 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 32, device=cuda)
+    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: no instance holds it
     with pytest.raises(ValueError, match="head dim"):
         tatt.flash_attention_cuda(x, x, x)
     y = torch.zeros(1, 8, 2, 64, device=cuda)
@@ -165,7 +167,8 @@ def _close_to_max(got, ref, rel, what):
 
 
 @pytest.mark.parametrize("shape", [(4, 1, 2, 64, 70), (4, 32, 2, 64), (2, 300, 4, 64),
-                                   (4, 1000, 2, 64), (3, 77, 4, 128), (2, 40, 2, 256)])
+                                   (4, 1000, 2, 64), (3, 77, 4, 128), (2, 40, 2, 256),
+                                   (8, 64, 8, 96), (2, 50, 3, 80), (3, 70, 2, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal):
@@ -266,7 +269,7 @@ def test_flash_backward_kernel_at_the_mrte_shape_bf16(cuda, causal):
 
 
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 96, device=cuda)  # the ADM's head dim at tc_emb_dim=512
+    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: no instance holds it
     st = torch.ones(1, 2, 8, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         tatt.flash_attention_bwd_cuda(x, x, x, None, False, x, st, st)

@@ -125,6 +125,12 @@ def test_bridge_merges_qkv_for_the_decode_layers():
     np.testing.assert_array_equal(m.plm.layers[1].attn.qkv.weight.detach().numpy(), want)
 
 
+# the serving slice's modules, each of which the walk below must import
+SERVING_MODULES = ["megatts2_tpu_torch." + m for m in (
+    "training.convert", "training.checkpoints", "models.pretrained", "models.streaming",
+    "data.manifest", "data.datasets", "continuous", "serve", "infer")]
+
+
 def test_port_imports_no_jax_flax_or_yaml():
     """A fresh interpreter imports every module of the package; none of
     them may pull in JAX, flax, PyYAML or any module of the JAX package
@@ -137,6 +143,8 @@ def test_port_imports_no_jax_flax_or_yaml():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'megatts2_tpu'))\n"
         "assert len(names) > 20, names\n"
+        f"missing = sorted(set({SERVING_MODULES!r}) - set(names))\n"
+        "assert not missing, missing\n"
         "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(megatts2_tpu_torch.__file__))

@@ -10,6 +10,8 @@ run on one set of parameters.
 """
 import json
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -102,13 +104,16 @@ def test_run_training_logs_at_its_cadence(tmp_path):
 
 
 def test_run_training_refuses_checkpoints_and_empty_loaders(tmp_path):
+    """Checkpoints are no longer refused: a ``ckpt_dir`` gets the final
+    save (``tests/test_torch_checkpoints.py`` holds save and resume).  An
+    empty loader still raises."""
     st = create_plm_state(PLM, TCFG, device="cpu")
     step, _ = make_plm_train_step(PLM, TCFG)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_training("plm", st, step, lambda e: [_batch()], 1, log_dir=str(tmp_path),
-                     ckpt_dir=str(tmp_path / "ck"))
+    run_training("plm", st, step, lambda e: [_batch()], 1, log_dir=str(tmp_path),
+                 ckpt_dir=str(tmp_path / "ck"))
+    assert sorted(os.listdir(tmp_path / "ck")) == [".save.lock", "scores.json", "step_1.ckpt"]
     with pytest.raises(ValueError, match="no batch"):
-        run_training("plm", st, step, lambda e: [], 1, log_dir=str(tmp_path))
+        run_training("plm", st, step, lambda e: [], st.step + 1, log_dir=str(tmp_path))
 
 
 def test_plm_training_and_decode_share_weights():
