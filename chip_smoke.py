@@ -134,6 +134,25 @@ Added for the serving slice (run after the kernels phase and the slice):
    prefill); every wav a whole number of frames.  Each mode's wall, utt/s,
    audio seconds, RTF and peak memory; then a stream's time to first chunk.
 
+Added for the training pipeline (run last):
+
+15. pipeline — dataset preparation and the training CLI as a user runs
+   them, in process, on a synthetic corpus from the seed (4 speakers × 12
+   utterances of 2.5-6.0 s, ``tools/synth_corpus.py``): ``prepare_ds``
+   stage 0 and stage 1 (kernel A, one launch a mel batch); ``cli fit`` of
+   the gan stage on ``configs/config_gan.yaml`` with ``use_flash`` under
+   the MRTE (4 steps: one validation, one artifact, one checkpoint; B and
+   C must launch), then its resume to 6 steps from the checkpoint
+   directory; stage 2 from that checkpoint (kernel B in fp32); ``cli fit``
+   of plm (B and C), adm (14 steps, ``--trace_dir``: the trace must be
+   written) and vocoder (A forward and backward), each the shipped config
+   with only max_steps, val_check_interval, log_every_n_steps and ds_path
+   overridden.  Every counter is set to 0 before each step of the
+   pipeline and read after it; each step's line gives its wall, steps,
+   median step ms and loader wait (``run_training``'s ``loop/`` row), peak
+   memory, checkpoint MiB and launches, beside the card's name and power
+   limit.  Losses and latents finite, shapes and counts as expected.
+
 Each phase's seconds are printed.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -1805,6 +1824,204 @@ def phase_vocoder_train(dev: torch.device, card: str, root: str) -> dict:
     return launches
 
 
+PIPE_SPK, PIPE_UTT, PIPE_DURS = 4, 12, (2.5, 6.0)  # the pipeline phase's synthetic corpus
+# the pipeline's fits: (stage, shipped config, max_steps, val_check_interval); the
+# gan stage resumes to GAN_RESUME, the adm stage is traced (steps 10-12)
+PIPE_FITS = (("gan", "configs/config_gan.yaml", 4, 4), ("plm", "configs/config_plm.yaml", 4, 4),
+             ("adm", "configs/config_adm.yaml", 14, 14),
+             ("vocoder", "configs/config_vocoder.yaml", 4, 4))
+GAN_RESUME = 6
+
+
+def _pipeline_config(shipped: str, out: str, ds: str, steps: int, val: int,
+                     use_flash: bool = False) -> str:
+    """``shipped`` with only max_steps, val_check_interval,
+    log_every_n_steps (1) and ds_path overridden, and ``use_flash: true``
+    under the MRTE when asked; written to ``out``."""
+    with open(shipped) as f:
+        text = f.read()
+    for key, value in (("max_steps", steps), ("val_check_interval", val),
+                       ("log_every_n_steps", 1), ("ds_path", ds + "/")):
+        text, n = re.subn(rf"^(\s*){key}:.*$", rf"\g<1>{key}: {value}", text, count=1, flags=re.M)
+        check(n == 1, f"{shipped}: no {key} to override")
+    if use_flash:
+        text, n = re.subn(r"^(\s*)mrte:\n", r"\g<1>mrte:\n\g<1>  use_flash: true\n", text,
+                          count=1, flags=re.M)
+        check(n == 1, f"{shipped}: no mrte block")
+    with open(out, "w") as f:
+        f.write(text)
+    return out
+
+
+def _launches() -> dict:
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.ops import mel
+
+    return {"A": mel.mel_spectrogram_cuda.launches, "A_bwd": mel.mel_spectrogram_bwd_cuda.launches,
+            "B": att.flash_attention_cuda.launches, "B_tc": att.flash_attention_cuda.tc_launches,
+            "C": att.flash_attention_bwd_cuda.launches}
+
+
+def _zero_launches() -> None:
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.ops import mel
+
+    mel.mel_spectrogram_cuda.launches = mel.mel_spectrogram_bwd_cuda.launches = 0
+    for fn in (att.flash_attention_cuda, att.flash_attention_bwd_cuda):
+        fn.launches = fn.tc_launches = 0
+    att.flash_attention_cuda.causal_launches = 0
+
+
+def _pipeline_step(label: str, card: str, fn, log: tuple = None, ckpt_dir: str = None):
+    """Run ``fn`` with every kernel counter at 0 and the peak memory reset;
+    print the step's line: wall, the loop's steps, median step ms and loader
+    wait (``run_training``'s ``loop/`` row in ``log`` = (dir, name)), peak
+    memory, the newest checkpoint's MiB and the launches (B split into its
+    tensor-core and SIMT routes).  Returns (fn's result, launches, loop row)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loop, extra = None, ""
+    if log is not None:
+        with open(os.path.join(log[0], f"{log[1]}_metrics.jsonl")) as f:
+            loop = [json.loads(line) for line in f if '"loop/steps"' in line][-1]
+        extra = (f", {int(loop['loop/steps'])} steps, median step {loop['loop/step_ms_median']:.2f} ms, "
+                 f"loader wait median {loop['loop/loader_wait_ms_median']:.3f} ms mean "
+                 f"{loop['loop/loader_wait_ms_mean']:.3f} ms a step")
+    if ckpt_dir is not None:
+        from megatts2_tpu_torch.training.checkpoints import latest_checkpoint
+
+        latest = latest_checkpoint(ckpt_dir)
+        extra += f", checkpoint {os.path.basename(latest)} {os.path.getsize(latest) / 2**20:.1f} MiB"
+    print(f"pipeline {label}: wall {wall:.2f} s{extra}, peak memory {peak:.2f} GiB, launches A "
+          f"{n['A']} A_bwd {n['A_bwd']} B {n['B']} (tensor cores {n['B_tc']}, SIMT "
+          f"{n['B'] - n['B_tc']}) C {n['C']} [{card}]")
+    return out, n, loop
+
+
+def _metric_rows(log_dir: str, name: str, prefix: str) -> list:
+    with open(os.path.join(log_dir, f"{name}_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if any(k.startswith(prefix) for k in r)]
+
+
+def phase_pipeline(dev: torch.device, card: str, root: str) -> dict:
+    """Dataset preparation and the training CLI as a user runs them, on the
+    card: a synthetic corpus, ``prepare_ds`` stages 0 and 1, ``cli fit`` of
+    the gan stage (``use_flash``) and its resume, stage 2 from its
+    checkpoint, then ``cli fit`` of plm, adm (traced) and vocoder, each on
+    the shipped config at full width.  Returns each step's launches."""
+    import shutil
+
+    from megatts2_tpu_torch import cli, prepare_ds
+    from megatts2_tpu_torch.config import load_gan_config
+    from megatts2_tpu_torch.data import CutManifest
+    from megatts2_tpu_torch.tools.synth_corpus import build_corpus
+
+    base = os.path.join(root, "pipeline")
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    wavs, tgs = build_corpus(base, PIPE_SPK, PIPE_UTT, SEED, PIPE_DURS)
+    n_utt = PIPE_SPK * PIPE_UTT
+    print(f"pipeline corpus: {PIPE_SPK} speakers x {PIPE_UTT} utterances of {PIPE_DURS} s, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    ds = os.path.join(base, "ds")
+    launches = {}
+    out, _, _ = _pipeline_step("stage 0", card, lambda: prepare_ds.main(
+        ["--stage", "0", "--wavtxt_path", wavs, "--num_workers", "4"]))
+    check(out == {"labs": n_utt}, f"stage 0: {out}")
+    out, launches["stage 1"], _ = _pipeline_step("stage 1", card, lambda: prepare_ds.main(
+        ["--stage", "1", "--wavtxt_path", wavs, "--text_grid_path", tgs, "--ds_path", ds]))
+    check(out["cuts"] == n_utt and launches["stage 1"]["A"] == out["mel_batches"] > 0,
+          f"stage 1: {out}, kernel A launches {launches['stage 1']['A']} (one a mel batch)")
+    print(f"pipeline stage 1: {out['cuts']} cuts, {out['mel_batches']} mel batches (kernel A at up to "
+          f"8 x 32768k samples), max_duration_token {out['max_duration_token']}")
+
+    logs = os.path.join(base, "logs")
+    fit_cfgs = {}
+    for stage, shipped, steps, val in PIPE_FITS:
+        fit_cfgs[stage] = _pipeline_config(shipped, os.path.join(base, f"{stage}.yaml"), ds, steps,
+                                           val, use_flash=stage == "gan")
+    ck = {stage: os.path.join(base, f"ck_{stage}") for stage, *_ in PIPE_FITS}
+
+    def fit(stage, cfg, *extra):
+        return lambda: cli.main(["fit", "-c", cfg, "--log_dir", logs, "--ckpt_dir", ck[stage],
+                                 *extra])
+
+    st, launches["fit gan"], loop = _pipeline_step("fit gan (use_flash)", card,
+                                                   fit("gan", fit_cfgs["gan"]), (logs, "gan"), ck["gan"])
+    check(st.step == 4 and loop["loop/steps"] == 4, f"fit gan: step {st.step}")
+    val = [r["val/loss_re"] for r in _metric_rows(logs, "gan", "val/")]
+    art = sorted(os.listdir(os.path.join(logs, "val_artifacts")))
+    check(len(val) == 1 and np.isfinite(val[0]) and art in (["mel_step4.npz"], ["mel_step4.png"]),
+          f"fit gan: validation {val}, artifacts {art}")
+    n = launches["fit gan"]
+    check(n["B"] > 0 and n["B_tc"] > 0 and n["C"] > 0, f"fit gan: B or C not launched {n}")
+    del st
+    resume_cfg = _pipeline_config("configs/config_gan.yaml", os.path.join(base, "gan_resume.yaml"), ds,
+                                  GAN_RESUME, 4, use_flash=True)
+    st, launches["fit gan resume"], loop = _pipeline_step(
+        "fit gan resume", card, fit("gan", resume_cfg), (logs, "gan"), ck["gan"])
+    check(st.step == GAN_RESUME and loop["loop/steps"] == GAN_RESUME - 4,
+          f"gan resume: step {st.step}, {loop['loop/steps']} steps run")
+    train = _metric_rows(logs, "gan", "train/")
+    check([r["step"] for r in train] == list(range(1, GAN_RESUME + 1))
+          and all(np.isfinite(v) for r in train for v in r.values()), f"fit gan: metrics {train}")
+    print(f"pipeline fit gan: G_loss_re {[round(r['train/G_loss_re'], 4) for r in train]}, "
+          f"val loss_re {val[0]:.4f}, artifacts {art}")
+    del st
+    torch.cuda.empty_cache()
+
+    g_ckpt = os.path.join(ck["gan"], f"step_{GAN_RESUME}.ckpt")
+    out, launches["stage 2"], _ = _pipeline_step("stage 2", card, lambda: prepare_ds.main(
+        ["--stage", "2", "--ds_path", ds, "--generator_ckpt", g_ckpt,
+         "--generator_config", fit_cfgs["gan"]]))
+    n = launches["stage 2"]
+    check(out == {"cuts": n_utt, "batches": -(-n_utt // 8)} and n["B"] > 0,
+          f"stage 2: {out}, kernel B launches {n}")
+    cut = CutManifest.load(os.path.join(ds, "cuts_train.jsonl.gz"))[0]
+    lat = np.load(os.path.join(ds, "latents", cut.speaker, f"{cut.id}.npy"), allow_pickle=True).item()
+    hidden = load_gan_config(fit_cfgs["gan"])[0].mrte.hidden_size
+    check(lat["tc_latent"].shape == (1, len(cut.phone_tokens), hidden)
+          and np.isfinite(lat["tc_latent"]).all()
+          and lat["p_code"].shape == (1, 1, -(-sum(cut.duration_tokens) // 8)),
+          f"stage 2: latent shapes {lat['tc_latent'].shape}, {lat['p_code'].shape}")
+    shutil.rmtree(ck["gan"])
+
+    trace = os.path.join(base, "trace")
+    loops = {}
+    for stage, _, steps, _ in PIPE_FITS[1:]:
+        extra = ["--trace_dir", trace] if stage == "adm" else []
+        st, launches[f"fit {stage}"], loops[stage] = _pipeline_step(
+            f"fit {stage}" + (" (traced)" if extra else ""), card,
+            fit(stage, fit_cfgs[stage], *extra), (logs, stage), ck[stage])
+        train = _metric_rows(logs, stage, "train/")
+        val = _metric_rows(logs, stage, "val/")
+        check(st.step == steps and len(train) == steps and len(val) == 1
+              and all(np.isfinite(v) for r in train + val for v in r.values()),
+              f"fit {stage}: step {st.step}, metrics {train[-1:]}, {val}")
+        key = "train/loss" if stage != "vocoder" else "train/G_loss_mel"
+        print(f"pipeline fit {stage}: {key} {[round(r[key], 4) for r in train]}")
+        del st
+        shutil.rmtree(ck[stage])
+        torch.cuda.empty_cache()
+    n = launches
+    check(n["fit plm"]["B_tc"] > 0 and n["fit plm"]["C"] > 0, f"fit plm: B or C not launched {n['fit plm']}")
+    check(n["fit vocoder"]["A"] > 0 and n["fit vocoder"]["A_bwd"] > 0,
+          f"fit vocoder: kernel A not launched {n['fit vocoder']}")
+    traces = os.listdir(trace)
+    check(traces == ["trace_steps_10-13.json"], f"trace: {traces}")
+    size = os.path.getsize(os.path.join(trace, traces[0])) / 2**20
+    print(f"pipeline trace: {traces[0]}, {size:.1f} MiB (fit adm, steps 10-12, CPU and CUDA activities)")
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -1832,11 +2049,17 @@ def main() -> None:
         gan = _timed("GAN train", phase_gan_train, dev, card, root)
         _timed("vocoder reference", phase_vocoder_reference, dev)
         vocoder = _timed("vocoder train", phase_vocoder_train, dev, card, root)
+        pipeline = _timed("pipeline", phase_pipeline, dev, card, root)
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
     served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
 
     def _ms(us):
         return None if us is None else us / 1e3
+
+    def piped(key):
+        """(launches, by step) of the pipeline phase for one counter."""
+        by = {f"pipeline {label}": n[key] for label, n in pipeline.items() if n[key]}
+        return sum(by.values()), by
 
     def row(name, source, replaces, key, err_key, launches, shape, **extra):
         ms, plain_ms = k["ms"][key]
@@ -1848,30 +2071,32 @@ def main() -> None:
 
     record = {"kernels": [
         row("mel_spectrogram", "mel.cu", "megatts2_tpu/ops/mel.py:190", "mel", "mel",
-            synth["mel"] + served["mel"] + vocoder["mel"],
+            synth["mel"] + served["mel"] + vocoder["mel"] + piped("A")[0],
             "(8, 131000) fp32", library="torch.stft + filterbank matmul + log (composite)",
             launches_by_path={**{label: s["mel"] for label, s in slices.items()},
                               **{f"serve {label}": s["mel"] for label, s in serve.items()},
-                              "vocoder": vocoder["mel"]},
+                              "vocoder": vocoder["mel"], **piped("A")[1]},
             device_ms=_ms(k["split"]["mel"]["device_us"]), host_ms=k["split"]["mel"]["host_us"] / 1e3,
             device_ms_prompt=_ms(k["split"]["mel_prompt"]["device_us"]),
             ms_prompt=k["ms"]["mel_prompt"][0], plain_ms_prompt=k["ms"]["mel_prompt"][1],
             bound_ms_prompt=k["bound"]["mel_prompt"][0], library_ms_prompt=k["lib"]["mel_prompt"]),
         row("mel_spectrogram_bwd", "mel.cu",
             "megatts2_tpu/ops/mel.py:190 (no Pallas backward: JAX differentiates the jnp golden, "
-            "megatts2_tpu/ops/mel.py:121-132)", "mel_bwd", "mel_bwd", vocoder["mel_bwd"],
-            "(8, 16384) fp32, g_mel (8, 65, 80)",
+            "megatts2_tpu/ops/mel.py:121-132)", "mel_bwd", "mel_bwd",
+            vocoder["mel_bwd"] + piped("A_bwd")[0], "(8, 16384) fp32, g_mel (8, 65, 80)",
             library="autograd backward of torch.stft + filterbank matmul + log",
-            launches_by_path={"vocoder": vocoder["mel_bwd"]},
+            launches_by_path={"vocoder": vocoder["mel_bwd"], **piped("A_bwd")[1]},
             device_ms=_ms(k["split"]["mel_bwd"]["device_us"]),
             host_ms=k["split"]["mel_bwd"]["host_us"] / 1e3),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
-            "flash_plm", "flash", synth["flash"] + served["flash"] + train["flash"] + gan["flash"],
+            "flash_plm", "flash",
+            synth["flash"] + served["flash"] + train["flash"] + gan["flash"] + piped("B")[0],
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
             launches_by_path={**{label: s["flash"] for label, s in slices.items()},
                               **{f"serve {label}": s["flash"] for label, s in serve.items()},
-                              "train": train["flash"], "gan": gan["flash"]},
-            tc_launches=synth["flash_tc"] + served["flash_tc"] + train["flash_tc"] + gan["flash_tc"],
+                              "train": train["flash"], "gan": gan["flash"], **piped("B")[1]},
+            tc_launches=(synth["flash_tc"] + served["flash_tc"] + train["flash_tc"] + gan["flash_tc"]
+                         + piped("B_tc")[0]),
             causal_launches_serve_prompted=serve["continuous prompted"]["flash_causal"],
             ms_dh96=k["ms"]["dh96"][0], plain_ms_dh96=k["ms"]["dh96"][1],
             bound_ms_dh96=k["bound"]["dh96"][0], library_ms_dh96=k["lib"]["dh96"],
@@ -1888,9 +2113,9 @@ def main() -> None:
             ms_prefill_256=k["ms"]["prefill_256"][0], ms_simt_prefill_256=k["simt"]["prefill_256"],
             library_ms_prefill_256=k["lib"]["prefill_256"]),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",
-            "flash_bwd", "flash_bwd", train["flash_bwd"] + gan["flash_bwd"],
+            "flash_bwd", "flash_bwd", train["flash_bwd"] + gan["flash_bwd"] + piped("C")[0],
             "(8, 1024, 16, 64) bf16 causal", library="scaled_dot_product_attention backward",
-            launches_by_path={"train": train["flash_bwd"], "gan": gan["flash_bwd"]},
+            launches_by_path={"train": train["flash_bwd"], "gan": gan["flash_bwd"], **piped("C")[1]},
             tc_launches=train["flash_bwd_tc"] + gan["flash_bwd_tc"],
             ms_simt=k["simt"]["flash_bwd"], tflops=k["tflops"]["flash_bwd"],
             ms_mrte=k["ms"]["flash_bwd_mrte"][0], plain_ms_mrte=k["ms"]["flash_bwd_mrte"][1],

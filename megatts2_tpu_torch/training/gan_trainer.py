@@ -159,3 +159,34 @@ def make_gan_eval_step(g_cfg: MegaGConfig) -> Callable[[GANTrainState, dict], Me
         return {"loss_re": loss_re, "y_hat": y_hat}
 
     return eval_step
+
+
+def make_gan_val_artifacts(g_cfg: MegaGConfig, out_dir: str, vocoder=None) -> Callable:
+    """``artifact_fn(state, batch, step)`` for ``run_training``: the first
+    validation utterance's target and output mels as
+    ``<out_dir>/mel_step<step>.png`` (``.npz`` without matplotlib) and, with
+    a ``vocoder`` module (the port's HiFi-GAN, on the state's device),
+    ``audio_target_step<step>.wav`` and ``audio_hat_step<step>.wav``
+    (reference ``trainer.py:154-188``).  The output is the eval step's
+    (``g_ema`` when the state has it)."""
+    import os
+
+    from ..models import vocode
+    from ..utils.audio import save_wav
+    from ..utils.plotting import save_spectrogram_plot
+
+    evaluate = make_gan_eval_step(g_cfg)
+    os.makedirs(out_dir, exist_ok=True)
+
+    @torch.no_grad()
+    def artifact_fn(state: GANTrainState, batch: Dict[str, np.ndarray], step: int) -> None:
+        y_hat = evaluate(state, batch)["y_hat"][0].float()
+        y = torch.as_tensor(np.asarray(batch["mel_targets"][0], np.float32), device=y_hat.device)
+        save_spectrogram_plot(os.path.join(out_dir, f"mel_step{step}"),
+                              y.cpu().numpy().T, y_hat.cpu().numpy().T)
+        if vocoder is not None:
+            for label, mel in (("target", y), ("hat", y_hat)):
+                wav = vocode(vocoder, mel[None])[0].cpu().numpy()
+                save_wav(os.path.join(out_dir, f"audio_{label}_step{step}.wav"), wav)
+
+    return artifact_fn

@@ -4,23 +4,36 @@
 The JAX loop's cadence and metric names: every ``log_every`` steps the
 step's metrics plus ``steps_per_sec`` and ``host_rss_gb`` under
 ``train/``; every ``val_every`` steps the mean of each scalar of
-``eval_step`` over the validation loader under ``val/``; JSONL through
-``utils.logging.MetricsLogger``.  There is no mesh (one device) and no
-profiler hook.  With ``ckpt_dir`` the loop first resumes from the latest
-checkpoint there (if any), then saves on the JAX cadence: after every
+``eval_step`` over the validation loader under ``val/``, then
+``artifact_fn(state, first_valid_batch, step)`` (its failure is reported,
+never fatal); JSONL through ``utils.logging.MetricsLogger``.  There is no
+mesh (one device).  ``trace_dir``: a ``torch.profiler`` trace of steps
+[10, 13) (``utils.logging.ProfilerHook``).  The run starts from
+``ckpt_path`` when given, else from the latest checkpoint in ``ckpt_dir``
+(if any); with ``ckpt_dir`` it saves on the JAX cadence: after every
 ``save_every_n_vals``-th validation, scored by its ``val/<monitor>``, and
-once at the end (``training/checkpoints.py``: reference layout, top-k by
-score plus the latest).
+at the end unless that validation just saved the last step
+(``training/checkpoints.py``: reference layout, top-k by score plus the
+latest).
+
+Beyond JAX's rows, one ``loop/`` row at the end of a run that took steps:
+``steps``, ``step_ms_median`` (host wall from a batch in hand to its
+metrics handled, steps after the run's first), ``loader_wait_ms_median``
+and ``loader_wait_ms_mean`` (the time the loop blocked on the next batch).
 """
 from __future__ import annotations
 
 import os
+import time
+import traceback
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 
-from ..utils.logging import MetricsLogger, StepTimer
+from ..utils.logging import MetricsLogger, ProfilerHook, StepTimer
 from .checkpoints import latest_checkpoint, restore_checkpoint, save_checkpoint
+
+_END = object()
 
 
 def _host_rss_gb() -> float:
@@ -45,55 +58,97 @@ def run_training(
     val_every: int = 1500,
     eval_step: Optional[Callable] = None,
     valid_loader_factory: Optional[Callable[[int], Iterable]] = None,
+    trace_dir: Optional[str] = None,
     keep_ckpts: int = 5,
+    artifact_fn: Optional[Callable] = None,
     monitor: str = "loss",
     save_every_n_vals: int = 1,
+    ckpt_path: Optional[str] = None,
 ):
     """Train ``state`` in place from ``state.step`` to ``max_steps``; returns it.
 
     ``train_loader_factory(epoch)`` yields the batches of one epoch;
     ``train_step(state, batch)`` and ``eval_step(state, batch)`` return
-    dicts of scalars (see ``lm_trainers``).  ``ckpt_dir``: resume from its
-    latest checkpoint, then save as the module docstring says."""
-    if ckpt_dir and latest_checkpoint(ckpt_dir):
-        restore_checkpoint(ckpt_dir, state)
+    dicts of scalars (see ``lm_trainers``).  Restores and saves as the
+    module docstring says."""
+    path = ckpt_path or (latest_checkpoint(ckpt_dir) if ckpt_dir else None)
+    if path:
+        restore_checkpoint(path, state)
     logger = MetricsLogger(log_dir, name)
     timer = StepTimer()
+    profiler = ProfilerHook(trace_dir)
     step = state.step
     epoch = 0
     n_vals = 0
+    waits, walls = [], []
+    saved = None  # the step last saved
     try:
         while step < max_steps:
             n_batches = 0
-            for batch in train_loader_factory(epoch):
-                if step >= max_steps:
-                    break
-                n_batches += 1
-                metrics = train_step(state, batch)
-                timer.tick()
-                step += 1
-                if step % log_every == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["steps_per_sec"] = timer.steps_per_sec
-                    m["host_rss_gb"] = _host_rss_gb()
-                    logger.log(step, m, prefix="train/")
-                if val_every and step % val_every == 0 and eval_step and valid_loader_factory:
-                    vals: Dict[str, list] = {}
-                    for vb in valid_loader_factory(epoch):
-                        for k, v in eval_step(state, vb).items():
-                            if np.ndim(v) == 0:
-                                vals.setdefault(k, []).append(float(v))
-                    vm = {k: float(np.mean(v)) for k, v in vals.items()}
-                    logger.log(step, vm, prefix="val/")
-                    n_vals += 1
-                    if ckpt_dir and n_vals % max(save_every_n_vals, 1) == 0:
-                        save_checkpoint(ckpt_dir, state, step, keep=keep_ckpts,
-                                        metric=vm.get(monitor))
+            batches = iter(train_loader_factory(epoch))
+            try:
+                while step < max_steps:
+                    t0 = time.perf_counter()
+                    batch = next(batches, _END)
+                    t1 = time.perf_counter()
+                    if batch is _END:
+                        break
+                    n_batches += 1
+                    profiler.before_step(step)
+                    metrics = train_step(state, batch)
+                    profiler.after_step(step)
+                    timer.tick()
+                    step += 1
+                    if step % log_every == 0:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["steps_per_sec"] = timer.steps_per_sec
+                        m["host_rss_gb"] = _host_rss_gb()
+                        logger.log(step, m, prefix="train/")
+                    waits.append(t1 - t0)
+                    walls.append(time.perf_counter() - t1)
+                    if val_every and step % val_every == 0 and eval_step and valid_loader_factory:
+                        n_vals += 1
+                        vm = _validate(state, eval_step, valid_loader_factory(epoch), artifact_fn,
+                                       step)
+                        logger.log(step, vm, prefix="val/")
+                        if ckpt_dir and n_vals % max(save_every_n_vals, 1) == 0:
+                            save_checkpoint(ckpt_dir, state, step, keep=keep_ckpts,
+                                            metric=vm.get(monitor))
+                            saved = step
+            finally:
+                if hasattr(batches, "close"):
+                    batches.close()
             if n_batches == 0:
                 raise ValueError(f"train loader gave no batch in epoch {epoch}")
             epoch += 1
-        if ckpt_dir:
+        if waits:
+            logger.log(step, {"steps": len(waits),
+                              "step_ms_median": 1e3 * float(np.median(walls[1:] or walls)),
+                              "loader_wait_ms_median": 1e3 * float(np.median(waits)),
+                              "loader_wait_ms_mean": 1e3 * float(np.mean(waits))},
+                       prefix="loop/")
+        if ckpt_dir and saved != step:
             save_checkpoint(ckpt_dir, state, step, keep=keep_ckpts)
     finally:
+        profiler.close()
         logger.close()
     return state
+
+
+def _validate(state, eval_step: Callable, batches: Iterable, artifact_fn: Optional[Callable],
+              step: int) -> Dict[str, float]:
+    """The mean of each scalar ``eval_step`` returns over ``batches``; then
+    ``artifact_fn`` on the first batch, whose failure is printed, not raised."""
+    vals: Dict[str, list] = {}
+    first = None
+    for vb in batches:
+        first = vb if first is None else first
+        for k, v in eval_step(state, vb).items():
+            if np.ndim(v) == 0:
+                vals.setdefault(k, []).append(float(v))
+    if artifact_fn is not None and first is not None:
+        try:
+            artifact_fn(state, first, step)
+        except Exception:  # validation artifacts never stop a run
+            print(f"[val artifacts] step {step} skipped:\n{traceback.format_exc()}")
+    return {k: float(np.mean(v)) for k, v in vals.items()}

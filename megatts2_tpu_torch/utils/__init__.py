@@ -1,1 +1,1 @@
-from .logging import MetricsLogger, StepTimer
+from .logging import MetricsLogger, ProfilerHook, StepTimer
