@@ -386,8 +386,10 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
 
     gen = torch.Generator().manual_seed(SEED)
     err = {"flash": 0.0, "mel": 0.0}
-    # the MRTE's shapes in synthesize_batch and __call__, then a long one
-    for shape in ((8, 64, 2, 256), (1, 3, 2, 256), (2, 1000, 16, 64)):
+    # the MRTE's shapes in synthesize_batch and __call__, stage 2's and the
+    # GAN fit's shorter phone buckets, then a long one
+    for shape in ((8, 64, 2, 256), (1, 3, 2, 256), (8, 32, 2, 256), (8, 48, 2, 256),
+                  (2, 1000, 16, 64)):
         B, T = shape[0], shape[1]
         lens = torch.tensor(([T, 0, T // 3 + 1, T - 5] * B)[:B], dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -401,19 +403,23 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                 err["flash"] = max(err["flash"], e)
                 print(f"kernel flash_attention {shape} {str(dtype)[6:]} causal={causal}: "
                       f"max_abs_err {e:.3g} (atol {ATOL_ATT[dtype]})")
-    # __call__'s prompts, the batch, the shortest signal (3 frames), ragged rows
-    for shape in ((64001,), (62377,), (8, 131000), (1, 513), (3, 777)):
+    # __call__'s prompts, the batch, the shortest signal (3 frames), ragged
+    # rows, stage 1's padded batches (a partial one too), the vocoder config's
+    # batch of 16 crops
+    for shape in ((64001,), (62377,), (8, 131000), (1, 513), (3, 777), (8, 65536), (8, 98304),
+                  (5, 32768), (16, 16384)):
         y = (torch.randn(shape, generator=gen) * 0.1).to(dev)
         got, ref = mel.mel_spectrogram_cuda(y), mel.mel_spectrogram_plain(y)
         e = (got - ref).abs().max().item()
         check(got.shape == ref.shape and e <= ATOL_MEL, f"mel {shape}: err {e}")
         err["mel"] = max(err["mel"], e)
         print(f"kernel mel_spectrogram {shape}: max_abs_err {e:.3g} (atol {ATOL_MEL})")
-    # kernel A's backward: the vocoder trainer's crops, through its [:, :64]
-    # slice (autograd, the Function on the card) and whole; the shortest
-    # signal; ragged rows; the batched front end
+    # kernel A's backward: the vocoder trainer's crops (B 8 and the config's
+    # 16), through its [:, :64] slice (autograd, the Function on the card) and
+    # whole; the shortest signal; ragged rows; the batched front end
     err["mel_bwd"] = 0.0
-    for shape, keep in (((8, 16384), 64), ((8, 16384), None), ((1, 513), None), ((3, 777), None),
+    for shape, keep in (((8, 16384), 64), ((8, 16384), None), ((16, 16384), 64),
+                        ((16, 16384), None), ((1, 513), None), ((3, 777), None),
                         ((8, 131000), None)):
         y = (torch.randn(shape, generator=gen) * 0.1).to(dev)
         g_mel = torch.randn(shape[0], mel.num_frames(shape[-1]), 80, generator=gen).to(dev)
@@ -1859,7 +1865,8 @@ def _launches() -> dict:
 
     return {"A": mel.mel_spectrogram_cuda.launches, "A_bwd": mel.mel_spectrogram_bwd_cuda.launches,
             "B": att.flash_attention_cuda.launches, "B_tc": att.flash_attention_cuda.tc_launches,
-            "C": att.flash_attention_bwd_cuda.launches}
+            "C": att.flash_attention_bwd_cuda.launches,
+            "C_tc": att.flash_attention_bwd_cuda.tc_launches}
 
 
 def _zero_launches() -> None:
@@ -1877,7 +1884,7 @@ def _pipeline_step(label: str, card: str, fn, log: tuple = None, ckpt_dir: str =
     print the step's line: wall, the loop's steps, median step ms and loader
     wait (``run_training``'s ``loop/`` row in ``log`` = (dir, name)), peak
     memory, the newest checkpoint's MiB and the launches (B split into its
-    tensor-core and SIMT routes).  Returns (fn's result, launches, loop row)."""
+    tensor-core and SIMT routes, and so is C).  Returns (fn's result, launches, loop row)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
@@ -1901,7 +1908,8 @@ def _pipeline_step(label: str, card: str, fn, log: tuple = None, ckpt_dir: str =
         extra += f", checkpoint {os.path.basename(latest)} {os.path.getsize(latest) / 2**20:.1f} MiB"
     print(f"pipeline {label}: wall {wall:.2f} s{extra}, peak memory {peak:.2f} GiB, launches A "
           f"{n['A']} A_bwd {n['A_bwd']} B {n['B']} (tensor cores {n['B_tc']}, SIMT "
-          f"{n['B'] - n['B_tc']}) C {n['C']} [{card}]")
+          f"{n['B'] - n['B_tc']}) C {n['C']} (tensor cores {n['C_tc']}, SIMT {n['C'] - n['C_tc']}) "
+          f"[{card}]")
     return out, n, loop
 
 
@@ -1911,12 +1919,114 @@ def _metric_rows(log_dir: str, name: str, prefix: str) -> list:
     return [r for r in rows if any(k.startswith(prefix) for k in r)]
 
 
-def phase_pipeline(dev: torch.device, card: str, root: str) -> dict:
+def _path_wrappers() -> dict:
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.ops import mel
+
+    return {"A": mel.mel_spectrogram_cuda, "A_bwd": mel.mel_spectrogram_bwd_cuda,
+            "B": att.flash_attention_cuda, "C": att.flash_attention_bwd_cuda}
+
+
+def _ragged_lens(B: int, T: int, dev: torch.device) -> torch.Tensor:
+    """Key lengths that reach the full length, partial tiles and 1."""
+    return torch.tensor([max(1, x) for x in ([T, T - 5, T // 3 + 1, 1] * B)[:B]], dtype=torch.int32,
+                        device=dev)
+
+
+def _check_stage1_features(dev: torch.device, ds: str, card: str) -> None:
+    """Stage 1's stored features (kernel A's mels, stored fp16) against the
+    plain mel of the same bucket-padded signals on the card, cut to each
+    cut's frames: within ATOL_MEL plus one fp16 ulp of the plain value."""
+    from megatts2_tpu_torch.data import CutManifest, FeatureReader
+    from megatts2_tpu_torch.ops import mel
+    from megatts2_tpu_torch.prepare_ds import SAMPLE_BUCKET
+    from megatts2_tpu_torch.utils.audio import load_wav
+
+    reader, worst, worst_abs, frames, n = FeatureReader(), 0.0, 0.0, 0, 0
+    for split in ("train", "valid"):
+        for cut in CutManifest.load(os.path.join(ds, f"cuts_{split}.jsonl.gz")).cuts:
+            y = load_wav(cut.wav_path)
+            bucket = -(-y.shape[-1] // SAMPLE_BUCKET) * SAMPLE_BUCKET
+            sig = torch.from_numpy(np.pad(y, (0, bucket - y.shape[-1]))).to(dev)
+            ref = mel.mel_spectrogram_plain(sig)[: cut.num_frames].cpu().numpy()
+            got = reader.read(cut.feats_path, cut.feats_offset, cut.num_frames)
+            ulp = np.spacing(np.abs(ref).astype(np.float16)).astype(np.float32)
+            excess = float((np.abs(got - ref) - ulp).max())
+            check(got.shape == ref.shape and excess <= ATOL_MEL,
+                  f"stage 1 {cut.id}: features {got.shape} vs {ref.shape}, {excess} over one fp16 ulp")
+            worst, frames, n = max(worst, excess), frames + cut.num_frames, n + 1
+            worst_abs = max(worst_abs, float(np.abs(got - ref).max()))
+    print(f"pipeline stage 1 features: {n} cuts, {frames} frames, kernel A's fp16 mels against the "
+          f"plain mel of the same padded signals on the card: max_abs_err {worst_abs:.3g}, max excess "
+          f"over one fp16 ulp {worst:.3g} (atol {ATOL_MEL}) [{card}]")
+
+
+def _check_path_shapes(dev: torch.device, shapes: dict, err: dict, card: str) -> None:
+    """Each kernel against its plain version at every launch signature the
+    pipeline gave it (the wrappers' ``shapes`` sets), on random inputs, on
+    the route the path took, with ragged key lengths where it gave lengths."""
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.ops import mel
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    worst = dict.fromkeys(shapes, 0.0)
+    for B, n in sorted(shapes["A"]):
+        y = (torch.randn(B, n, generator=gen) * 0.1).to(dev)
+        e = (mel.mel_spectrogram_cuda(y) - mel.mel_spectrogram_plain(y)).abs().max().item()
+        check(e <= ATOL_MEL, f"pipeline shape mel ({B}, {n}): err {e}")
+        worst["A"] = max(worst["A"], e)
+    for B, n in sorted(shapes["A_bwd"]):
+        y = (torch.randn(B, n, generator=gen) * 0.1).to(dev)
+        g_mel = torch.randn(B, mel.num_frames(n), 80, generator=gen).to(dev)
+        ref = mel.mel_spectrogram_bwd_plain(y, g_mel)
+        e, top = (mel.mel_spectrogram_bwd_cuda(y, g_mel) - ref).abs().max().item(), ref.abs().max().item()
+        check(e <= REL_MEL_BWD * top, f"pipeline shape mel bwd ({B}, {n}): err {e}, max {top}")
+        worst["A_bwd"] = max(worst["A_bwd"], e)
+    for B, Tq, Tk, H, dh, dtype, causal, tc, has_lens, stats in sorted(shapes["B"], key=str):
+        q = torch.randn(B, Tq, H, dh, generator=gen).to(dev, dtype)
+        k, v = (torch.randn(B, Tk, H, dh, generator=gen).to(dev, dtype) for _ in range(2))
+        lens = _ragged_lens(B, Tk, dev) if has_lens else None
+        tc0 = att.flash_attention_cuda.tc_launches
+        got = att.flash_attention_cuda(q, k, v, lens, causal, return_stats=stats, simt=not tc)
+        ref = att.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
+        e = ((got[0] if stats else got).float() - ref[0].float()).abs().max().item()
+        em = (got[1] - ref[1]).abs().max().item() if stats else 0.0
+        el = ((got[2] - ref[2]).abs() / ref[2]).max().item() if stats else 0.0
+        check(att.flash_attention_cuda.tc_launches - tc0 == int(tc)
+              and e <= ATOL_ATT[dtype] and em <= ATOL_M and el <= RTOL_L,
+              f"pipeline shape flash {(B, Tq, Tk, H, dh)} {dtype} causal={causal}: err {e}, m {em}, l {el}")
+        worst["B"] = max(worst["B"], e)
+    for B, Tq, Tk, H, dh, dtype, causal, tc, has_lens in sorted(shapes["C"], key=str):
+        q, g = (torch.randn(B, Tq, H, dh, generator=gen).to(dev, dtype) for _ in range(2))
+        k, v = (torch.randn(B, Tk, H, dh, generator=gen).to(dev, dtype) for _ in range(2))
+        lens = _ragged_lens(B, Tk, dev) if has_lens else None
+        _, m, l = att.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+        tc0 = att.flash_attention_bwd_cuda.tc_launches
+        got = att.flash_attention_bwd_cuda(q, k, v, lens, causal, g, m, l, simt=not tc)
+        ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l))
+        check(att.flash_attention_bwd_cuda.tc_launches - tc0 == int(tc)
+              and all(a <= REL_BWD[dtype] * t for a, t in ge),
+              f"pipeline shape flash bwd {(B, Tq, Tk, H, dh)} {dtype} causal={causal}: {ge}")
+        worst["C"] = max(worst["C"], *(a for a, _ in ge))
+    torch.cuda.synchronize()
+    for name, key in (("A", "mel"), ("A_bwd", "mel_bwd"), ("B", "flash"), ("C", "flash_bwd")):
+        err[key] = max(err[key], worst[name])
+        sigs = [", ".join(map(str, sig[:5])) + (f" {str(sig[5])[6:]}" if len(sig) > 5 else "")
+                for sig in sorted(shapes[name], key=str)]
+        print(f"pipeline shapes {name}: {len(sigs)} launch signatures held against the plain version, "
+              f"max_abs_err {worst[name]:.3g}: ({'), ('.join(sigs)}) [{card}]")
+
+
+def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     """Dataset preparation and the training CLI as a user runs them, on the
     card: a synthetic corpus, ``prepare_ds`` stages 0 and 1, ``cli fit`` of
     the gan stage (``use_flash``) and its resume, stage 2 from its
     checkpoint, then ``cli fit`` of plm, adm (traced) and vocoder, each on
-    the shipped config at full width.  Returns each step's launches."""
+    the shipped config at full width.  Every launch signature of kernels A,
+    B and C on that path is recorded and, after the path, held against the
+    plain version (its worst error folded into ``err``); stage 1's stored
+    features are held against the plain mel.  Returns each step's
+    launches."""
     import shutil
 
     from megatts2_tpu_torch import cli, prepare_ds
@@ -1933,6 +2043,9 @@ def phase_pipeline(dev: torch.device, card: str, root: str) -> dict:
           f"built in {time.perf_counter() - t0:.1f} s")
     ds = os.path.join(base, "ds")
     launches = {}
+    wrappers = _path_wrappers()
+    for fn in wrappers.values():
+        fn.shapes = set()
     out, _, _ = _pipeline_step("stage 0", card, lambda: prepare_ds.main(
         ["--stage", "0", "--wavtxt_path", wavs, "--num_workers", "4"]))
     check(out == {"labs": n_utt}, f"stage 0: {out}")
@@ -2019,6 +2132,11 @@ def phase_pipeline(dev: torch.device, card: str, root: str) -> dict:
     check(traces == ["trace_steps_10-13.json"], f"trace: {traces}")
     size = os.path.getsize(os.path.join(trace, traces[0])) / 2**20
     print(f"pipeline trace: {traces[0]}, {size:.1f} MiB (fit adm, steps 10-12, CPU and CUDA activities)")
+    shapes = {name: fn.shapes for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.shapes = None
+    _check_stage1_features(dev, ds, card)
+    _check_path_shapes(dev, shapes, err, card)
     return launches
 
 
@@ -2049,7 +2167,7 @@ def main() -> None:
         gan = _timed("GAN train", phase_gan_train, dev, card, root)
         _timed("vocoder reference", phase_vocoder_reference, dev)
         vocoder = _timed("vocoder train", phase_vocoder_train, dev, card, root)
-        pipeline = _timed("pipeline", phase_pipeline, dev, card, root)
+        pipeline = _timed("pipeline", phase_pipeline, dev, card, root, k["err"])
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
     served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
 
@@ -2116,7 +2234,7 @@ def main() -> None:
             "flash_bwd", "flash_bwd", train["flash_bwd"] + gan["flash_bwd"] + piped("C")[0],
             "(8, 1024, 16, 64) bf16 causal", library="scaled_dot_product_attention backward",
             launches_by_path={"train": train["flash_bwd"], "gan": gan["flash_bwd"], **piped("C")[1]},
-            tc_launches=train["flash_bwd_tc"] + gan["flash_bwd_tc"],
+            tc_launches=train["flash_bwd_tc"] + gan["flash_bwd_tc"] + piped("C_tc")[0],
             ms_simt=k["simt"]["flash_bwd"], tflops=k["tflops"]["flash_bwd"],
             ms_mrte=k["ms"]["flash_bwd_mrte"][0], plain_ms_mrte=k["ms"]["flash_bwd_mrte"][1],
             bound_ms_mrte=k["bound"]["flash_bwd_mrte"][0],

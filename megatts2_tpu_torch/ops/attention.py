@@ -271,6 +271,9 @@ def flash_attention_cuda(
     flash_attention_cuda.launches += 1
     flash_attention_cuda.tc_launches += int(tc)
     flash_attention_cuda.causal_launches += int(causal)
+    if flash_attention_cuda.shapes is not None:
+        flash_attention_cuda.shapes.add((B, Tq, k.shape[1], H, dh, q.dtype, bool(causal), tc,
+                                         k_lens is not None, return_stats))
     out = out[..., :dh]
     return (out, m, l) if return_stats else out
 
@@ -279,6 +282,10 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.tc_launches = 0  # launches of the tensor-core path
 flash_attention_cuda.causal_launches = 0  # causal launches (the prompt prefill, PLM training)
 flash_attention_cuda.layout_copies = 0
+# a set that each launch adds its (B, Tq, Tk, H, Dh, dtype, causal, tensor
+# cores, lengths given, stats returned) to, or None: lets a caller check the
+# kernel at every shape a path gave it
+flash_attention_cuda.shapes = None
 
 
 def flash_attention_bwd_cuda(
@@ -335,12 +342,16 @@ def flash_attention_bwd_cuda(
     check(err, "flash attention backward kernel")
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.tc_launches += int(tc)
+    if flash_attention_bwd_cuda.shapes is not None:
+        flash_attention_bwd_cuda.shapes.add((B, Tq, k.shape[1], H, dh, q.dtype, bool(causal), tc,
+                                             k_lens is not None))
     return dq[..., :dh], dk[..., :dh], dv[..., :dh]
 
 
 flash_attention_bwd_cuda.launches = 0
 flash_attention_bwd_cuda.tc_launches = 0  # launches of the tensor-core path
 flash_attention_bwd_cuda.layout_copies = 0
+flash_attention_bwd_cuda.shapes = None  # as flash_attention_cuda.shapes, without the stats flag
 
 
 def _by_device(t: torch.Tensor, cuda_fn, plain_fn):

@@ -337,6 +337,8 @@ def _mel_forward(sig: torch.Tensor, n_mels: int) -> torch.Tensor:
         )
     check(err, "mel kernel")
     mel_spectrogram_cuda.launches += 1
+    if mel_spectrogram_cuda.shapes is not None:
+        mel_spectrogram_cuda.shapes.add((B, n))
     return out
 
 
@@ -372,10 +374,13 @@ def mel_spectrogram_bwd_cuda(signal: torch.Tensor, g_mel: torch.Tensor) -> torch
         )
     check(err, "mel backward kernel")
     mel_spectrogram_bwd_cuda.launches += 1
+    if mel_spectrogram_bwd_cuda.shapes is not None:
+        mel_spectrogram_bwd_cuda.shapes.add((B, n))
     return g_sig
 
 
 mel_spectrogram_bwd_cuda.launches = 0
+mel_spectrogram_bwd_cuda.shapes = None  # as mel_spectrogram_cuda.shapes
 
 
 class MelFunction(torch.autograd.Function):
@@ -416,6 +421,9 @@ def mel_spectrogram_cuda(
 
 
 mel_spectrogram_cuda.launches = 0
+# a set that each launch adds its signal's (B, n) to, or None: lets a caller
+# check the kernel at every shape a path gave it
+mel_spectrogram_cuda.shapes = None
 
 
 def mel_spectrogram_bwd_plain(signal: torch.Tensor, g_mel: torch.Tensor) -> torch.Tensor:

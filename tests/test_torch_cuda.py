@@ -401,3 +401,30 @@ def test_pump_kernel_rejects_what_it_does_not_take(cuda):
         tpump.pump_cuda(w.float(), 1)
     with pytest.raises(ValueError, match="cols"):
         tpump.pump_cuda(torch.zeros(3, 16, 64, dtype=torch.int8, device=cuda), 1)
+
+
+def test_wrappers_record_launch_shapes_only_when_asked(cuda):
+    """With ``.shapes`` a set, each launch adds its signature; with None
+    (the default) nothing is kept."""
+    g = torch.Generator().manual_seed(5)
+    fns = (tmel.mel_spectrogram_cuda, tmel.mel_spectrogram_bwd_cuda, tatt.flash_attention_cuda,
+           tatt.flash_attention_bwd_cuda)
+    assert all(fn.shapes is None for fn in fns)
+    y = torch.randn(2, 3000, generator=g).to(cuda)
+    q, k, v, go = _qkv((2, 40, 2, 64, 50), 4, g, cuda, torch.bfloat16)
+    lens = _lens(2, 50).to(cuda)
+    try:
+        for fn in fns:
+            fn.shapes = set()
+        tmel.mel_spectrogram_cuda(y)
+        tmel.mel_spectrogram_bwd_cuda(y, torch.ones(2, tmel.num_frames(3000), 80, device=cuda))
+        _, m, l = tatt.flash_attention_cuda(q, k, v, lens, return_stats=True)
+        tatt.flash_attention_cuda(q, k, v, None, True, simt=True)
+        tatt.flash_attention_bwd_cuda(q, k, v, lens, False, go, m, l)
+        assert fns[0].shapes == {(2, 3000)} and fns[1].shapes == {(2, 3000)}
+        assert fns[2].shapes == {(2, 40, 50, 2, 64, torch.bfloat16, False, True, True, True),
+                                 (2, 40, 50, 2, 64, torch.bfloat16, True, False, False, False)}
+        assert fns[3].shapes == {(2, 40, 50, 2, 64, torch.bfloat16, False, True, True)}
+    finally:
+        for fn in fns:
+            fn.shapes = None
