@@ -5,6 +5,7 @@ over a synthetic corpus (2 speakers × 5 utterances of 2.5-3.0 s).  Used by
 ``test_torch_pipeline_cuda.py``."""
 import os
 
+import pytest
 import torch
 
 from megatts2_tpu_torch import prepare_ds
@@ -161,6 +162,19 @@ data:
 YAMLS = {"gan": GAN_YAML, "plm": PLM_YAML, "adm": ADM_YAML, "vocoder": VOC_YAML}
 
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the torch work of each module that imports
+    this fixture, restored after.  The
+    suite runs files in parallel processes, and torch's threads in each
+    oversubscribe the host's cores: with 7 busy processes on 8 cores, a
+    tiny vocoder fit and resume took 31.4 s on 8 threads and 0.7 s on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def config(tmp, stage: str, ds: str, steps: int, val: int = 100) -> str:

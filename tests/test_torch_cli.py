@@ -28,6 +28,7 @@ from megatts2_tpu_torch.data import CutManifest, DurationBucketSampler
 from megatts2_tpu_torch.training.checkpoints import latest_checkpoint, read_checkpoint
 from megatts2_tpu_torch.utils import plotting
 from pipeline_fixtures import config as _config
+from pipeline_fixtures import one_torch_thread  # noqa: F401 (module fixture)
 from pipeline_fixtures import prepare_dataset
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from megatts2_tpu_torch import prepare_ds as tprep
 from megatts2_tpu_torch.data import CutManifest, LatentReader
 from megatts2_tpu_torch.tools.synth_corpus import build_corpus
 from pipeline_fixtures import DURS, GAN_YAML, N_SPK, N_UTT, RATIO, stage1, write_g_ckpt
+from pipeline_fixtures import one_torch_thread  # noqa: F401 (module fixture)
 
 
 @pytest.fixture(scope="module")
