@@ -13,15 +13,16 @@ Phases, each printing a line; any failure raises and exits non-zero:
    statistics, kernel C (the attention backward) at the PLM's training
    shape (8, 1024, 16, 64) causal with mixed lengths that include 0, and
    at (2, 300, 4, 128) non-causal, and at the GAN step's MRTE shape (8, 64,
-   2, 256) bf16 on its SIMT path (checked with lengths that include 0 and
-   1 and with every phone real; timed with every phone real, as
-   ``tools/profile_train.py``'s batch, beside its bound and SDPA's
+   2, 256) bf16 on its tensor-core path (two blocks split the output
+   columns) and its SIMT path (checked with lengths that include 0 and 1
+   and with every phone real, causal and not; timed with every phone real,
+   as ``tools/profile_train.py``'s batch, beside its bound and SDPA's
    autograd backward); kernels B (with and without statistics)
    and C on their bf16 tensor-core path at its edges (Tq of 1, 32, 300 and
-   1000 at head dim 64, (3, 77, 4, 128); at head dim 256, where only B has
-   the path, the MRTE's (8, 64, 2, 256) and (1, 3, 2, 256), (2, 300, 4,
-   256) and one row against 70 keys; k_lens holding 0 and 1; causal and
-   not), each line beside the SIMT path's error on the same inputs, and on
+   1000 at head dim 64, (3, 77, 4, 128); at head dim 256 the MRTE's (8, 64,
+   2, 256) and (1, 3, 2, 256), (2, 300, 4, 256) and one row against 70
+   keys; at head dim 96 several key tiles and one row; k_lens holding 0 and
+   1; causal and not), each line beside the SIMT path's error on the same inputs, and on
    views off TMA's 16-byte rule (copied and counted); kernel D (the copy
    pump) at (3, 16, 256) and the tool's (144, 256, 4096) for 1, 2 and 16
    passes, both outputs exact; kernel A's backward against autograd through
@@ -30,8 +31,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    (plain, kernel, kernel, plain) with CUDA events, each beside its bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    peak rate of their type) and one PyTorch library call that computes the
-   same function; kernels A and B at the synthesis shapes also split into
-   device us (``torch.profiler``) and the host's issue us a call
+   same function; kernels A and B at the synthesis shapes, and B and C at
+   the PLM's training shape, also split into device us (``torch.profiler``) and the host's issue us a call
    (``tools/kernel_times.py``'s cases, kernel A's backward at (8, 16384)
    too, beside the autograd backward of ``torch.stft`` + filterbank + log),
    with what kernel B's tensor-core
@@ -70,7 +71,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
    0 just before and must be > 0 after; losses finite and the eval loss
    falling.  Then the warm step's
    ms, tokens/s and peak device memory; a few ADM steps at
-   ``MegaADMConfig(tc_emb_dim=512)``, B=8, T=64; and a greedy ``plm_infer``
+   ``MegaADMConfig(tc_emb_dim=512)`` (head dim 96), B=8, T=64, with plain
+   attention and with ``use_flash`` from the same seeded weights (B's and
+   C's counters set to 0 before and read after each: none may launch on
+   the plain route, both only on their tensor-core path with
+   ``use_flash``; the first losses within ``ADM_FLASH_RTOL``; each route's
+   warm step ms); and a greedy ``plm_infer``
    from the trained weights that the teacher-forced forward agrees with.
 9. GAN reference — a small fp32 G + D (the MRTE at head dim 64 with
    ``use_flash``) takes 3 GAN steps on the card (kernels B and C) and 3 on
@@ -85,7 +91,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    steps and an eval, twice: as shipped (plain attention; no attention
    kernel may launch) and with ``MRTEConfig(use_flash=True)`` (kernel B's
    counters and kernel C's set to 0 before and read after: B and its
-   tensor-core path and C must launch, C's tensor-core path must not).
+   tensor-core path must launch, and C on its tensor-core path 8 times a
+   step).
    Losses finite, the codebook alive after the kmeans init, the eval
    ``loss_re`` finite; then each run's warm step ms, peak device memory
    and a ``torch.profiler`` breakdown of a warm step by kernel group.
@@ -106,12 +113,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
 
 Added for the serving slice (run after the kernels phase and the slice):
 
-3b. kernels, serving — kernels B and C at head dims that are no
-   tensor-core instance, (8, 64, 8, 96) (the ADM at ``tc_emb_dim=512``)
-   and (2, 50, 3, 80) (zero-padded to 96), fp32 and bf16, causal and not,
-   against their plain versions under ``ATOL_ATT`` and ``REL_BWD``; kernel
-   B at Dh 96 and causal at the engine's prefill (8, 2048, 16, 64) bf16,
-   timed beside SDPA and the bound.
+3b. kernels, serving — kernels B and C at the ADM's head dim, (8, 64, 8,
+   96) (``tc_emb_dim=512``) and (2, 50, 3, 80) (zero-padded to 96), fp32
+   and bf16 (bf16 on the tensor cores and on SIMT), causal and not, against
+   their plain versions under ``ATOL_ATT`` and ``REL_BWD``; B and C above
+   head dim 256 (257, 320, 512 and 640 at (3, 70, 2, Dh), fp32 and bf16,
+   causal and not, on SIMT); B and C at Dh 96 bf16 timed on each route
+   (event ms, device and host us, plain, SDPA, bound) and kernel B causal
+   at the engine's prefill (8, 2048, 16, 64) bf16, timed beside SDPA and
+   the bound.
 13. serve reference — small fp32 models: the port's checkpoints written in
    the reference layout and read back onto the card (every tensor equal);
    the continuous engine (2 slots, requests at Tp 40, 64 and 24, the third
@@ -132,7 +142,9 @@ Added for the serving slice (run after the kernels phase and the slice):
    counters (B's tensor-core and causal ones too) are set to 0 before each
    mode and must be > 0 after it (B causal in the prompted mode: the
    prefill); every wav a whole number of frames.  Each mode's wall, utt/s,
-   audio seconds, RTF and peak memory; then a stream's time to first chunk.
+   audio seconds, RTF and peak memory; kernel B timed at the largest MRTE
+   launch signature of the four modes, beside plain, SDPA and the bound;
+   then a stream's time to first chunk.
 
 Added for the training pipeline (run last):
 
@@ -144,10 +156,11 @@ Added for the training pipeline (run last):
    the MRTE (4 steps: one validation, one artifact, one checkpoint; B and
    C must launch), then its resume to 6 steps from the checkpoint
    directory; stage 2 from that checkpoint (kernel B in fp32); ``cli fit``
-   of plm (B and C), adm (14 steps, ``--trace_dir``: the trace must be
-   written) and vocoder (A forward and backward), each the shipped config
-   with only max_steps, val_check_interval, log_every_n_steps and ds_path
-   overridden.  Every counter is set to 0 before each step of the
+   of plm (B and C), adm (14 steps, ``use_flash`` and bf16: B and C only on
+   their tensor-core path; ``--trace_dir``: the trace must be written) and
+   vocoder (A forward and backward), each the shipped config with only
+   max_steps, val_check_interval, log_every_n_steps and ds_path overridden
+   (and the ADM's ``use_flash`` and ``train_dtype``).  Every counter is set to 0 before each step of the
    pipeline and read after it; each step's line gives its wall, steps,
    median step ms and loader wait (``run_training``'s ``loop/`` row), peak
    memory, checkpoint MiB and launches, beside the card's name and power
@@ -192,6 +205,11 @@ GAN_B = 8  # tools/profile_train.py's GAN geometry: B=8, Tp=64, 512 timbre + 512
 PLM_LENS = [1024, 1024, 960, 800, 700, 512, 384, 100]  # mixed, as PLMBatchBuilder pads
 GAN_TP = 64  # tools/profile_train.py: tokens_lens = Tp for every row
 MRTE_EDGE_LENS = [64, 0, 33, 63, 1, 17, 64, 48]  # kernel C's check only: lengths 0, 1, partial tiles
+# the ADM's first bf16 step with use_flash against plain attention, relative:
+# the plain route rounds P to bf16 for P V, kernel B carries it to ~16 bits
+# (hi + lo), so each layer's bf16 attention output may differ by a bf16 ulp
+# (2^-8) and the loss by a few of them over 8 layers
+ADM_FLASH_RTOL = 2e-2
 # H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and operations
 # per ms by type; a kernel's bound is the larger of bytes and operations
 HBM_BYTES_PER_MS = 3.35e9
@@ -266,11 +284,12 @@ def phase_build() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {library_path()}")
 
 # the tensor-core path's edges (bf16): (B, Tq, H, Dh, Tk), Tq of 1, 32, 300
-# and 1000 inside 64-row tiles at Dh 64, Dh 128, and Dh 256 (output columns
-# split over two blocks): the MRTE's two shapes, several key tiles, one row
+# and 1000 inside 64-row tiles at Dh 64, Dh 128, Dh 256 (output columns
+# split over two blocks): the MRTE's two shapes, several key tiles, one row;
+# Dh 96 (128-wide tiles, columns 96-127 zero): several key tiles, one row
 TC_EDGES = ((4, 1, 2, 64, 70), (4, 32, 2, 64, 32), (4, 300, 2, 64, 300), (4, 1000, 2, 64, 1000),
             (3, 77, 4, 128, 77), (8, 64, 2, 256, 64), (1, 3, 2, 256, 3), (2, 300, 4, 256, 300),
-            (4, 1, 2, 256, 70))
+            (4, 1, 2, 256, 70), (3, 150, 2, 96, 150), (4, 1, 2, 96, 70))
 
 
 def _rel_errs(got, ref) -> list[tuple[float, float]]:
@@ -283,9 +302,8 @@ def tc_edges(dev: torch.device, gen: torch.Generator, err: dict) -> None:
     """Kernels B (with and without statistics) and C on the tensor-core path
     at its edges, k_lens holding 0 and 1, causal and not, against the plain
     versions; each line also gives the SIMT path's error on the same inputs
-    (the first kernels, kept for fp32 and, in kernel C, Dh 256, whose
-    backward runs on them on both lines).  Then views off the TMA rule:
-    copied, counted, right."""
+    (the first kernels, kept for fp32 and head dims above 256).  Then views
+    off the TMA rule: copied, counted, right."""
     from megatts2_tpu_torch.ops import attention as att
 
     bf = torch.bfloat16
@@ -523,25 +541,40 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                   f"stats m {em:.3g} (atol {ATOL_M}), l rel {el:.3g} (rtol {RTOL_L})")
     torch.cuda.synchronize()
     # kernel C at the MRTE's shape, where the GAN step with use_flash runs
-    # it: (8, 64, 2, 256) bf16 on its SIMT path; checked with edge lengths
-    # and with every phone real, then timed with every phone real
+    # it: (8, 64, 2, 256) bf16 on its tensor-core path (two blocks split the
+    # output columns) and on its SIMT path; checked with edge lengths and
+    # with every phone real, causal and not, then timed with every phone real
     q, k, v, g = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
     for lens_list in (MRTE_EDGE_LENS, [GAN_TP] * 8):
         lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-        _, m, l = att.flash_attention_cuda(q, k, v, lens, return_stats=True)
-        tc0 = att.flash_attention_bwd_cuda.tc_launches
-        got = att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l)
-        ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l))
-        check(att.flash_attention_bwd_cuda.tc_launches == tc0, "kernel C took the tensor cores at Dh 256")
-        check(all(a <= REL_BWD[torch.bfloat16] * t for a, t in ge), f"flash bwd MRTE {lens_list}: {ge}")
-        err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
-        print(f"kernel flash_attention_bwd (8, 64, 2, 256) bf16 simt, lens {lens_list}: max_abs_err/max "
-              f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))} "
-              f"(rel {REL_BWD[torch.bfloat16]})")
+        for causal in (False, True):
+            _, m, l = att.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+            ref = att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l)
+            line = []
+            for use_simt in (False, True):
+                tc0 = att.flash_attention_bwd_cuda.tc_launches
+                got = att.flash_attention_bwd_cuda(q, k, v, lens, causal, g, m, l, simt=use_simt)
+                ge = _rel_errs(got, ref)
+                check(att.flash_attention_bwd_cuda.tc_launches == tc0 + (not use_simt),
+                      f"kernel C at Dh 256 simt={use_simt}: tensor-core launches {tc0} -> "
+                      f"{att.flash_attention_bwd_cuda.tc_launches}")
+                check(all(bool(torch.isfinite(x).all()) for x in got)
+                      and all(a <= REL_BWD[torch.bfloat16] * t for a, t in ge),
+                      f"flash bwd MRTE {lens_list} causal={causal} simt={use_simt}: {ge}")
+                err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+                line.append(f"{'simt' if use_simt else 'tensor cores'} " + ", ".join(
+                    f"{n} {a:.3g}/{t:.3g}" for n, (a, t) in zip(("dq", "dk", "dv"), ge)))
+            print(f"kernel flash_attention_bwd (8, 64, 2, 256) bf16, lens {lens_list} causal={causal}: "
+                  f"max_abs_err/max {'; '.join(line)} (rel {REL_BWD[torch.bfloat16]})")
+    _, m, l = att.flash_attention_cuda(q, k, v, lens, return_stats=True)  # every phone real
     t_bwd_mrte = in_turns(lambda: att.flash_attention_bwd_plain(q, k, v, lens, False, g, m, l),
                           lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l))
-    split_bwd_mrte = kernel_times.time_cases({"flash_bwd_mrte": (
-        lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l), "flash_")})["flash_bwd_mrte"]
+    simt["flash_bwd_mrte"] = cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l,
+                                                                          simt=True))
+    split_bwd_mrte = kernel_times.time_cases({
+        "flash_bwd_mrte": (lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l), "flash_"),
+        "flash_bwd_mrte_simt": (lambda: att.flash_attention_bwd_cuda(q, k, v, lens, False, g, m, l,
+                                                                     simt=True), "flash_")})
     mask = sdpa_mask(lens, 64, False)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -550,15 +583,17 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     del out, qt, kt, vt
     pairs = attn_pairs([GAN_TP] * 8, 64, 2, False)
     bound_bwd_mrte = bound(7 * q.numel() * 2 + 2 * m.numel() * 4, 10 * 256 * pairs, "bf16")
-    print(f"time flash_attention_bwd (8,64,2,256) bf16 simt (the GAN step's MRTE, every phone real): kernel "
-          f"{t_bwd_mrte[0]:.4f} ms, plain {t_bwd_mrte[1]:.4f} ms, library (SDPA autograd backward) "
-          f"{lib_bwd_mrte:.4f} ms, bound {bound_bwd_mrte[0]:.5f} ms by {bound_bwd_mrte[1]} "
-          f"({10 * 256 * pairs / 1e9:.4f} GFLOP) [{card}]")
-    dev_us = split_bwd_mrte["device_us"]
-    print(f"time split flash_attention_bwd (8,64,2,256) bf16 simt: event "
-          f"{split_bwd_mrte['event_ms']:.4f} ms, device "
-          f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler), host issue "
-          f"{split_bwd_mrte['host_us']:.2f} us a call [{card}]")
+    print(f"time flash_attention_bwd (8,64,2,256) bf16 (the GAN step's MRTE, every phone real): tensor "
+          f"cores {t_bwd_mrte[0]:.4f} ms, simt {simt['flash_bwd_mrte']:.4f} ms, plain {t_bwd_mrte[1]:.4f} "
+          f"ms, library (SDPA autograd backward) {lib_bwd_mrte:.4f} ms, bound {bound_bwd_mrte[0]:.5f} ms "
+          f"by {bound_bwd_mrte[1]} ({10 * 256 * pairs / 1e9:.4f} GFLOP) [{card}]")
+    for key, route in (("flash_bwd_mrte", "tensor cores"), ("flash_bwd_mrte_simt", "simt")):
+        sp = split_bwd_mrte[key]
+        dev_us = sp["device_us"]
+        print(f"time split flash_attention_bwd (8,64,2,256) bf16 {route}: event {sp['event_ms']:.4f} ms, "
+              f"device {'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler, both "
+              f"passes), host issue {sp['host_us']:.2f} us a call; bound {bound_bwd_mrte[0]:.5f} ms, "
+              f"library {lib_bwd_mrte:.4f} ms [{card}]")
     tc_edges(dev, gen, err)
 
     # timing at the PLM's training shape: (8, 1024, 16, 64) bf16 causal, mixed lengths
@@ -630,14 +665,23 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         print(f"tflops {key}: tensor cores {tflops[key]:.1f} TFLOP/s, simt "
               f"{flops[key] / simt[key] / 1e9:.1f}, library (SDPA) {flops[key] / lib[key] / 1e9:.1f} "
               f"({flops[key] / 1e9:.2f} GFLOP; peak 989) [{card}]")
+    for key, name, b_key in (("flash_plm", "flash_attention +stats (8,1024,16,64) bf16 causal", "flash_plm"),
+                             ("flash_bwd_plm", "flash_attention_bwd (8,1024,16,64) bf16 causal", "flash_bwd")):
+        sp = split[key]
+        dev_us = sp["device_us"]
+        print(f"time split {name} (tools/kernel_times.py's lengths as PLM_LENS): event {sp['event_ms']:.4f} "
+              f"ms, device {'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler), "
+              f"host issue {sp['host_us']:.2f} us a call; bound {bounds[b_key][0]:.4f} ms, library "
+              f"{lib[b_key]:.4f} ms [{card}]")
     print(f"trace flash_attention_bwd (8,1024,16,64) bf16 causal, device ms a call by kernel "
           f"(torch.profiler): {passes or 'not measured'} [{card}]")
     hgmma, regs = sass_hgmma(), ptxas_report()
     print(f"sass HGMMA instructions per tensor-core kernel: {hgmma} [{card}]")
     for name, rep in regs.items():
         print(f"ptxas {name}: {rep}")
-    check(len(hgmma) == 7 and all(n > 0 for n in hgmma.values()), f"HGMMA counts {hgmma}")
-    check(len(regs) == 7 and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs.values()),
+    # B at Dh 64, 96, 128, 256; C's two passes at the same four
+    check(len(hgmma) == 12 and all(n > 0 for n in hgmma.values()), f"HGMMA counts {hgmma}")
+    check(len(regs) == 12 and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs.values()),
           f"ptxas report {regs}")
 
     # kernel D: both outputs exact, at a small shape and the tool's
@@ -666,7 +710,7 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     del w, w32, dst
     torch.cuda.synchronize()
     lib["flash_bwd_mrte"], bounds["flash_bwd_mrte"] = lib_bwd_mrte, bound_bwd_mrte
-    split["flash_bwd_mrte"] = split_bwd_mrte
+    split.update(split_bwd_mrte)
     # kernel A's bound at one ~4 s prompt, counted as at (8, 131000), and
     # the library composite there
     y1 = (torch.randn(64001, generator=gen) * 0.1).to(dev)
@@ -709,55 +753,123 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
                    "mel_prompt": t_mel_prompt, "mel_bwd": t_mel_bwd, **times}}
 
 
-# kernels B and C at head dims that are no tensor-core instance: 96 (the ADM
-# at tc_emb_dim 512; the SIMT instance) and 80 (zero-padded to 96)
+# kernels B and C at the ADM's head dim: 96 (tc_emb_dim 512; 128-wide tiles on
+# the tensor cores, columns 96-127 zero) and 80 (zero-padded to 96)
 HEAD_DIM_SHAPES = ((8, 64, 8, 96), (2, 50, 3, 80))
+WIDE_HEAD_DIMS = (257, 320, 512, 640)  # the SIMT instance at 512, then chunks of 256 (640 -> 768)
 PREFILL_P = 2048  # the continuous engine's prompt budget at --prompt_tokens 2048
 
 
-def phase_kernels_serving(dev: torch.device, card: str, k: dict) -> None:
-    """Kernels B and C at head dims 96 and 80, fp32 and bf16, against their
-    plain versions; kernel B at Dh 96 and causal at the engine's prefill
-    shape (8, 2048, 16, 64) bf16, timed beside SDPA and the bound.  Adds
-    its errors, times, bounds and library times to the kernels phase's ``k``."""
+def wide_head_dims(dev: torch.device, err: dict) -> None:
+    """Kernels B (with statistics) and C above head dim 256, fp32 and bf16,
+    causal and not, on the SIMT path against their plain versions."""
     from megatts2_tpu_torch.ops import attention as att
 
+    gen = torch.Generator().manual_seed(SEED + 12)
+    lens = torch.tensor([70, 1, 24], dtype=torch.int32, device=dev)
+    for dh in WIDE_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.randn(3, 70, 2, dh, generator=gen).to(dev, dtype) for _ in range(4))
+            for causal in (False, True):
+                tc0 = att.flash_attention_cuda.tc_launches, att.flash_attention_bwd_cuda.tc_launches
+                out, m, l = att.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+                grads = att.flash_attention_bwd_cuda(q, k, v, lens, causal, g, m, l)
+                ref, pm, pl = att.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
+                e = (out.float() - ref.float()).abs().max().item()
+                em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
+                ge = _rel_errs(grads, att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l))
+                check(out.shape == q.shape and all(x.shape == q.shape for x in grads)
+                      and (att.flash_attention_cuda.tc_launches,
+                           att.flash_attention_bwd_cuda.tc_launches) == tc0,
+                      f"flash Dh {dh}: shapes or a tensor-core launch")
+                check(e <= ATOL_ATT[dtype] and em <= ATOL_M and el <= RTOL_L
+                      and all(a <= REL_BWD[dtype] * t for a, t in ge),
+                      f"flash Dh {dh} {dtype} causal={causal}: fwd {e}, m {em}, l {el}, bwd {ge}")
+                err["flash"] = max(err["flash"], e)
+                err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+                print(f"kernel flash_attention (3, 70, 2, {dh}) {str(dtype)[6:]} causal={causal} (simt, "
+                      f"instance {att.instance_head_dim(dh)}): max_abs_err {e:.3g} (atol {ATOL_ATT[dtype]}), "
+                      f"m {em:.3g}, l rel {el:.3g}; backward max_abs_err/max "
+                      f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))}"
+                      f" (rel {REL_BWD[dtype]})")
+    torch.cuda.synchronize()
+
+
+def phase_kernels_serving(dev: torch.device, card: str, k: dict) -> None:
+    """Kernels B and C at head dims 96 and 80, fp32 and bf16 (bf16 on the
+    tensor cores and on SIMT), against their plain versions; both at Dh 96
+    bf16 timed on each route; B and C above head dim 256; kernel B causal at
+    the engine's prefill shape (8, 2048, 16, 64) bf16, timed beside SDPA and
+    the bound.  Adds its errors, times, bounds and library times to the
+    kernels phase's ``k``."""
+    from megatts2_tpu_torch.ops import attention as att
+    from megatts2_tpu_torch.tools import kernel_times
+
     gen = torch.Generator().manual_seed(SEED + 11)
-    err, ms, lib, bounds = k["err"], k["ms"], k["lib"], k["bound"]
+    err, ms, lib, bounds, simt = k["err"], k["ms"], k["lib"], k["bound"], k["simt"]
     for shape in HEAD_DIM_SHAPES:
         B, T = shape[0], shape[1]
         lens = torch.tensor(([T, 1, T // 3 + 1, T - 5] * B)[:B], dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             q, k_, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
             for causal in (False, True):
-                out, m, l = att.flash_attention_cuda(q, k_, v, lens, causal, return_stats=True)
                 ref, pm, pl = att.flash_attention_plain(q, k_, v, lens, causal, return_stats=True)
-                e = (out.float() - ref.float()).abs().max().item()
-                em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
-                check(out.shape == q.shape and bool(torch.isfinite(out).all()),
-                      f"flash {shape} {dtype}: shape or non-finite")
-                check(e <= ATOL_ATT[dtype] and em <= ATOL_M and el <= RTOL_L,
-                      f"flash {shape} {dtype} causal={causal}: err {e}, m {em}, l {el}")
-                got = att.flash_attention_bwd_cuda(q, k_, v, lens, causal, g, m, l)
-                ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k_, v, lens, causal, g, m, l))
-                check(all(a.shape == q.shape for a in got) and
-                      all(a <= REL_BWD[dtype] * t for a, t in ge),
-                      f"flash bwd {shape} {dtype} causal={causal}: {ge}")
-                err["flash"] = max(err["flash"], e)
-                err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+                line = []
+                for use_simt in ((False, True) if dtype == torch.bfloat16 else (True,)):
+                    tc0 = att.flash_attention_cuda.tc_launches, att.flash_attention_bwd_cuda.tc_launches
+                    out, m, l = att.flash_attention_cuda(q, k_, v, lens, causal, return_stats=True,
+                                                         simt=use_simt)
+                    e = (out.float() - ref.float()).abs().max().item()
+                    em, el = (m - pm).abs().max().item(), ((l - pl).abs() / pl).max().item()
+                    got = att.flash_attention_bwd_cuda(q, k_, v, lens, causal, g, m, l, simt=use_simt)
+                    ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k_, v, lens, causal, g, m, l))
+                    tc = int(dtype == torch.bfloat16 and not use_simt)
+                    check((att.flash_attention_cuda.tc_launches, att.flash_attention_bwd_cuda.tc_launches)
+                          == (tc0[0] + tc, tc0[1] + tc), f"flash {shape} {dtype} simt={use_simt}: route")
+                    check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+                          f"flash {shape} {dtype}: shape or non-finite")
+                    check(e <= ATOL_ATT[dtype] and em <= ATOL_M and el <= RTOL_L,
+                          f"flash {shape} {dtype} causal={causal} simt={use_simt}: err {e}, m {em}, l {el}")
+                    check(all(a.shape == q.shape for a in got) and
+                          all(a <= REL_BWD[dtype] * t for a, t in ge),
+                          f"flash bwd {shape} {dtype} causal={causal} simt={use_simt}: {ge}")
+                    err["flash"] = max(err["flash"], e)
+                    err["flash_bwd"] = max(err["flash_bwd"], *(a for a, _ in ge))
+                    line.append(f"{'simt' if use_simt else 'tensor cores'}: fwd {e:.3g}, m {em:.3g}, l rel "
+                                f"{el:.3g}, " + ", ".join(f"{n} {a:.3g}/{t:.3g}" for n, (a, t)
+                                                           in zip(("dq", "dk", "dv"), ge)))
                 print(f"kernel flash_attention {shape} {str(dtype)[6:]} causal={causal} (head dim "
-                      f"{shape[3]} on instance {att.instance_head_dim(shape[3])}): max_abs_err {e:.3g} "
-                      f"(atol {ATOL_ATT[dtype]}); backward max_abs_err/max "
-                      f"{', '.join(f'{n} {a:.3g}/{t:.3g}' for n, (a, t) in zip(('dq', 'dk', 'dv'), ge))}"
-                      f" (rel {REL_BWD[dtype]})")
-    # kernel B at Dh 96 bf16 (its SIMT instance), every row of length 64
-    q, k_, v = (torch.randn(8, 64, 8, 96, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+                      f"{shape[3]} on instance {att.instance_head_dim(shape[3])}): max_abs_err "
+                      f"{'; '.join(line)} (atol {ATOL_ATT[dtype]}, bwd rel {REL_BWD[dtype]})")
+    wide_head_dims(dev, err)
+    # kernels B and C at Dh 96 bf16 (the ADM's self-attention), every row of
+    # length 64, on each route; the library: SDPA and its autograd backward
+    q, k_, v, g = (torch.randn(8, 64, 8, 96, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
     lens = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    _, m, l = att.flash_attention_cuda(q, k_, v, lens, return_stats=True)
     ms["dh96"] = in_turns(lambda: att.flash_attention_plain(q, k_, v, lens),
                           lambda: att.flash_attention_cuda(q, k_, v, lens))
-    lib["dh96"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k_.transpose(1, 2), v.transpose(1, 2)))
-    bounds["dh96"] = bound(4 * q.numel() * 2, 4 * 96 * attn_pairs([64] * 8, 64, 8, False), "bf16")
+    ms["bwd_dh96"] = in_turns(lambda: att.flash_attention_bwd_plain(q, k_, v, lens, False, g, m, l),
+                              lambda: att.flash_attention_bwd_cuda(q, k_, v, lens, False, g, m, l))
+    simt["dh96"] = cuda_ms(lambda: att.flash_attention_cuda(q, k_, v, lens, simt=True))
+    simt["bwd_dh96"] = cuda_ms(lambda: att.flash_attention_bwd_cuda(q, k_, v, lens, False, g, m, l,
+                                                                    simt=True))
+    k["split"].update(kernel_times.time_cases({
+        "dh96": (lambda: att.flash_attention_cuda(q, k_, v, lens), "flash"),
+        "dh96_simt": (lambda: att.flash_attention_cuda(q, k_, v, lens, simt=True), "flash"),
+        "bwd_dh96": (lambda: att.flash_attention_bwd_cuda(q, k_, v, lens, False, g, m, l), "flash_"),
+        "bwd_dh96_simt": (lambda: att.flash_attention_bwd_cuda(q, k_, v, lens, False, g, m, l, simt=True),
+                          "flash_")}))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v))
+    lib["dh96"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k_, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = g.transpose(1, 2)
+    lib["bwd_dh96"] = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+    del out, qt, kt, vt
+    pairs = attn_pairs([64] * 8, 64, 8, False)
+    bounds["dh96"] = bound(4 * q.numel() * 2, 4 * 96 * pairs, "bf16")
+    bounds["bwd_dh96"] = bound(7 * q.numel() * 2 + 2 * m.numel() * 4, 10 * 96 * pairs, "bf16")
     # the engine's prompt prefill: causal over 2048 prompt codes in every row
     q, k_, v = (torch.randn(8, PREFILL_P, 16, 64, generator=gen).to(dev, torch.bfloat16)
                 for _ in range(3))
@@ -773,11 +885,24 @@ def phase_kernels_serving(dev: torch.device, card: str, k: dict) -> None:
         q.transpose(1, 2), k_.transpose(1, 2), v.transpose(1, 2), is_causal=True))
     bounds[key] = bound(4 * q.numel() * 2, 4 * 64 * attn_pairs([PREFILL_P] * 8, PREFILL_P, 16, True),
                         "bf16")
-    for name, key_ in (("(8,64,8,96) bf16 simt", "dh96"),
-                       (f"prefill (8,{PREFILL_P},16,64) bf16 causal tensor cores", key)):
+    for name, key_, lib_name in (("flash_attention (8,64,8,96) bf16", "dh96", "SDPA"),
+                                 ("flash_attention_bwd (8,64,8,96) bf16", "bwd_dh96", "SDPA autograd backward"),
+                                 (f"flash_attention prefill (8,{PREFILL_P},16,64) bf16 causal", key, "SDPA")):
         tk, tp = ms[key_]
-        print(f"time flash_attention {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, library (SDPA) "
-              f"{lib[key_]:.4f} ms, bound {bounds[key_][0]:.4f} ms by {bounds[key_][1]} [{card}]")
+        extra = f", simt {simt[key_]:.4f} ms" if key_ in simt else ""
+        print(f"time {name}: tensor cores {tk:.4f} ms{extra}, plain {tp:.4f} ms, library ({lib_name}) "
+              f"{lib[key_]:.4f} ms, bound {bounds[key_][0]:.5f} ms by {bounds[key_][1]} [{card}]")
+    for key_, name in (("dh96", "flash_attention (8,64,8,96) bf16 tensor cores"),
+                       ("dh96_simt", "flash_attention (8,64,8,96) bf16 simt"),
+                       ("bwd_dh96", "flash_attention_bwd (8,64,8,96) bf16 tensor cores"),
+                       ("bwd_dh96_simt", "flash_attention_bwd (8,64,8,96) bf16 simt")):
+        sp = k["split"][key_]
+        dev_us = sp["device_us"]
+        b_key = key_.removesuffix("_simt")
+        print(f"time split {name}: event {sp['event_ms']:.4f} ms, device "
+              f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} (torch.profiler), host issue "
+              f"{sp['host_us']:.2f} us a call; bound {bounds[b_key][0]:.5f} ms, library "
+              f"{lib[b_key]:.4f} ms [{card}]")
     print(f"kernel flash_attention prefill (8,{PREFILL_P},16,64) bf16 causal: max_abs_err {e:.3g} "
           f"(atol {ATOL_ATT[torch.bfloat16]})")
     torch.cuda.synchronize()
@@ -926,10 +1051,10 @@ def _mrte_routes(tts, text: str, mels: torch.Tensor, label: str, card: str, roun
     phone = torch.zeros(B, -(-n // 16) * 16, dtype=torch.long)
     phone[:, :n] = ids
     phone, lens = phone.to(tts.device), torch.full((B,), n, device=tts.device)
-    default = att.fwd_uses_tensor_cores
+    default = att.uses_tensor_cores
 
     def wall(tensor_cores: bool) -> tuple[float, int]:
-        att.fwd_uses_tensor_cores = default if tensor_cores else (lambda dtype, head_dim: False)
+        att.uses_tensor_cores = default if tensor_cores else (lambda dtype, head_dim: False)
         try:
             with torch.inference_mode():
                 tts.g.mrte.tc_latent(phone, mels, lens)
@@ -941,7 +1066,7 @@ def _mrte_routes(tts, text: str, mels: torch.Tensor, label: str, card: str, roun
                 torch.cuda.synchronize()
             return (time.perf_counter() - t0) / reps * 1e3, att.flash_attention_cuda.tc_launches - tc0
         finally:
-            att.fwd_uses_tensor_cores = default
+            att.uses_tensor_cores = default
 
     walls: dict = {True: [], False: []}
     calls = 0  # kernel B calls a tc_latent
@@ -1254,12 +1379,39 @@ def _serve_http(argv: list, inputs: dict, n: int = 8) -> dict:
     return out
 
 
-def phase_serve(dev: torch.device, card: str, root: str) -> dict:
+def _serve_mrte_times(dev: torch.device, card: str, k: dict, sigs: set) -> None:
+    """Kernel B at the largest MRTE launch signature (head dim 256, not
+    causal) of the serving path, every phone real: kernel and plain in
+    turns, SDPA and the bound, into ``k["serve_mrte"]``."""
+    from megatts2_tpu_torch.ops import attention as att
+
+    mrte = [sig for sig in sigs if sig[4] == 256 and not sig[6]]
+    check(bool(mrte), f"serve: no MRTE launch among {sigs}")
+    B, Tq, Tk, H, dh = max(mrte, key=lambda sig: sig[0] * sig[1] * sig[2])[:5]
+    gen = torch.Generator().manual_seed(SEED + 13)
+    q = torch.randn(B, Tq, H, dh, generator=gen).to(dev, torch.bfloat16)
+    k_, v = (torch.randn(B, Tk, H, dh, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    lens = torch.full((B,), Tk, dtype=torch.int32, device=dev)
+    tk, tp = in_turns(lambda: att.flash_attention_plain(q, k_, v, lens),
+                      lambda: att.flash_attention_cuda(q, k_, v, lens))
+    t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k_.transpose(1, 2),
+                                                           v.transpose(1, 2)))
+    b = bound(2 * (2 * q.numel() + k_.numel() + v.numel()), 4 * dh * attn_pairs([Tk] * B, Tq, H, False), "bf16")
+    k["serve_mrte"] = {"shape": f"({B}, {Tq}, {Tk}, {H}, {dh}) bf16", "ms": tk, "plain_ms": tp,
+                       "library_ms": t_lib, "bound_ms": b[0], "signatures": len(mrte)}
+    print(f"time flash_attention serve MRTE (B,Tq,Tk,H,Dh)={(B, Tq, Tk, H, dh)} bf16 (the largest of the "
+          f"serving path's {len(mrte)} MRTE signatures {sorted(sig[:3] for sig in mrte)}), every phone "
+          f"real: tensor cores {tk:.4f} ms, plain {tp:.4f} ms, library (SDPA) {t_lib:.4f} ms, bound "
+          f"{b[0]:.5f} ms by {b[1]} [{card}]")
+
+
+def phase_serve(dev: torch.device, card: str, root: str, k: dict) -> dict:
     """The full-width serving path in bf16 through ``serve.main`` in process
     with ``serve.py``'s defaults: batch, --continuous, --continuous with a
     2048-token prosody prompt, --http.  Kernel A's and B's counters (and B's
     tensor-core and causal ones) are set to 0 before each mode and read
-    after it; then the stream's time to first chunk."""
+    after it; kernel B's launch signatures are recorded and it is timed at
+    the largest MRTE one; then the stream's time to first chunk."""
     import io
 
     from megatts2_tpu_torch.models import megatts_from_pretrained
@@ -1281,6 +1433,7 @@ def phase_serve(dev: torch.device, card: str, root: str) -> dict:
                                       str(PREFILL_P)]),
              ("http", ["--http", "0"]))
     launches = {}
+    att.flash_attention_cuda.shapes = set()
     for label, extra in modes:
         d = os.path.join(out_dir, label.replace(" ", "_"))
         torch.cuda.synchronize()
@@ -1325,6 +1478,8 @@ def phase_serve(dev: torch.device, card: str, root: str) -> dict:
               f"for the mode{load}), {rec['utt_per_sec']:.3f} utt/s, audio {rec['audio_s']:.2f} s, "
               f"RTF {rec['rtf']:.4f}, peak memory {peak:.2f} GiB, launches {n}, frames "
               f"{[x // 256 for x in wav_lens]} [{card}]")
+    sigs, att.flash_attention_cuda.shapes = att.flash_attention_cuda.shapes, None
+    _serve_mrte_times(dev, card, k, sigs)
     # the stream's time to first chunk, warm (the second of two streams)
     t0 = time.perf_counter()
     tts = megatts_from_pretrained(ck["g"], inputs["gan"], ck["plm"], inputs["plm"], ck["adm"],
@@ -1512,13 +1667,37 @@ def phase_train(dev: torch.device, card: str, root: str) -> dict:
               "duration_tokens": np.concatenate(
                   [np.zeros((B, 1, 1), np.float32), rng.randint(1, 9, (B, T, 1)).astype(np.float32)], 1),
               "lens": np.full((B,), T, np.int32)}
-    ast = create_adm_state(acfg, tcfg, device=dev)
-    astep, _ = make_adm_train_step(acfg, tcfg)
-    alosses = [float(astep(ast, abatch)["loss"]) for _ in range(4)]
-    check(all(np.isfinite(alosses)), f"train: ADM losses {alosses}")
-    ams = _steps_ms(astep, ast, abatch)
-    print(f"train: ADM (tc_emb_dim 512, head dim 96, plain attention) losses "
-          f"{[round(x, 4) for x in alosses]}; warm step {ams:.2f} ms, B={B}, T={T} [{card}]")
+    first = {}
+    for flash in (False, True):  # the same seeded weights and dropout draws on either route
+        acfg = c.MegaADMConfig(tc_emb_dim=512, use_flash=flash)
+        ast = create_adm_state(acfg, tcfg, device=dev)
+        astep, _ = make_adm_train_step(acfg, tcfg)
+        torch.cuda.synchronize()
+        for fn in (att.flash_attention_cuda, att.flash_attention_bwd_cuda):
+            fn.launches = fn.tc_launches = 0
+        alosses = [float(astep(ast, abatch)["loss"]) for _ in range(4)]
+        torch.cuda.synchronize()
+        n = {"B": att.flash_attention_cuda.launches, "B_tc": att.flash_attention_cuda.tc_launches,
+             "C": att.flash_attention_bwd_cuda.launches, "C_tc": att.flash_attention_bwd_cuda.tc_launches}
+        check(all(np.isfinite(alosses)), f"train: ADM use_flash={flash} losses {alosses}")
+        if flash:
+            check(n["B"] > 0 and n["C"] > 0 and n["B_tc"] == n["B"] and n["C_tc"] == n["C"],
+                  f"train: ADM use_flash: B and C must launch, only on the tensor cores: {n}")
+            check(abs(alosses[0] - first[False]) <= ADM_FLASH_RTOL * abs(first[False]),
+                  f"train: ADM first loss {alosses[0]} with use_flash, {first[False]} plain")
+        else:
+            check(sum(n.values()) == 0, f"train: ADM plain attention launched {n}")
+        first[flash] = alosses[0]
+        ams = _steps_ms(astep, ast, abatch)
+        label = "use_flash" if flash else "plain attention"
+        print(f"train: ADM (tc_emb_dim 512, head dim 96, {label}) losses "
+              f"{[round(x, 4) for x in alosses]}; launches B {n['B']} (tensor cores {n['B_tc']}, SIMT "
+              f"{n['B'] - n['B_tc']}), C {n['C']} (tensor cores {n['C_tc']}, SIMT {n['C'] - n['C_tc']}); "
+              f"warm step {ams:.2f} ms, B={B}, T={T} [{card}]")
+        launches["adm_flash" if flash else "adm_plain"] = n
+        del ast, astep
+    print(f"train: ADM first-step loss, plain attention {first[False]:.6f}, use_flash {first[True]:.6f} "
+          f"(rel {abs(first[True] - first[False]) / abs(first[False]):.3g}, rtol {ADM_FLASH_RTOL})")
 
     tc = torch.randn(2, 16, cfg.tc_latent_dim, generator=torch.Generator().manual_seed(SEED)).to(dev)
     codes = plm_infer(st.model, tc)
@@ -1676,7 +1855,8 @@ def phase_gan_train(dev: torch.device, card: str, root: str) -> dict:
         if flash:
             check(launches["flash"] > 0 and launches["flash_tc"] > 0 and launches["flash_bwd"] > 0,
                   f"gan use_flash: kernel B, its tensor-core path or kernel C was not launched: {launches}")
-            check(launches["flash_bwd_tc"] == 0, "gan use_flash: kernel C took the tensor cores at Dh 256")
+            check(launches["flash_bwd_tc"] == launches["flash_bwd"] == 8 * 6,
+                  f"gan use_flash: kernel C must take the tensor cores at Dh 256, 8 a step: {launches}")
         else:
             check(sum(launches.values()) == 0, f"gan as shipped: attention kernels launched {launches}")
         with open(os.path.join(log_dir, f"{name}_metrics.jsonl")) as f:
@@ -1839,21 +2019,31 @@ PIPE_FITS = (("gan", "configs/config_gan.yaml", 4, 4), ("plm", "configs/config_p
 GAN_RESUME = 6
 
 
+# the config block that gets use_flash: true in the pipeline's fits, and the
+# ADM's train dtype there: its shipped float32 would send B and C to their
+# SIMT route; the fit holds the ADM's bf16 tensor-core route
+PIPE_FLASH = {"gan": "mrte", "adm": "adm"}
+PIPE_DTYPE = {"adm": "bfloat16"}
+
+
 def _pipeline_config(shipped: str, out: str, ds: str, steps: int, val: int,
-                     use_flash: bool = False) -> str:
+                     use_flash: str = None, train_dtype: str = None) -> str:
     """``shipped`` with only max_steps, val_check_interval,
-    log_every_n_steps (1) and ds_path overridden, and ``use_flash: true``
-    under the MRTE when asked; written to ``out``."""
+    log_every_n_steps (1) and ds_path overridden, ``use_flash: true`` under
+    the block named ``use_flash`` (``mrte``, ``adm``) and train_dtype when
+    asked; written to ``out``."""
     with open(shipped) as f:
         text = f.read()
     for key, value in (("max_steps", steps), ("val_check_interval", val),
-                       ("log_every_n_steps", 1), ("ds_path", ds + "/")):
+                       ("log_every_n_steps", 1), ("ds_path", ds + "/"), ("train_dtype", train_dtype)):
+        if value is None:
+            continue
         text, n = re.subn(rf"^(\s*){key}:.*$", rf"\g<1>{key}: {value}", text, count=1, flags=re.M)
         check(n == 1, f"{shipped}: no {key} to override")
     if use_flash:
-        text, n = re.subn(r"^(\s*)mrte:\n", r"\g<1>mrte:\n\g<1>  use_flash: true\n", text,
-                          count=1, flags=re.M)
-        check(n == 1, f"{shipped}: no mrte block")
+        text, n = re.subn(rf"^(\s*){use_flash}:\n", rf"\g<1>{use_flash}:\n\g<1>  use_flash: true\n",
+                          text, count=1, flags=re.M)
+        check(n == 1, f"{shipped}: no {use_flash} block")
     with open(out, "w") as f:
         f.write(text)
     return out
@@ -2060,7 +2250,7 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     fit_cfgs = {}
     for stage, shipped, steps, val in PIPE_FITS:
         fit_cfgs[stage] = _pipeline_config(shipped, os.path.join(base, f"{stage}.yaml"), ds, steps,
-                                           val, use_flash=stage == "gan")
+                                           val, PIPE_FLASH.get(stage), PIPE_DTYPE.get(stage))
     ck = {stage: os.path.join(base, f"ck_{stage}") for stage, *_ in PIPE_FITS}
 
     def fit(stage, cfg, *extra):
@@ -2078,7 +2268,7 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     check(n["B"] > 0 and n["B_tc"] > 0 and n["C"] > 0, f"fit gan: B or C not launched {n}")
     del st
     resume_cfg = _pipeline_config("configs/config_gan.yaml", os.path.join(base, "gan_resume.yaml"), ds,
-                                  GAN_RESUME, 4, use_flash=True)
+                                  GAN_RESUME, 4, use_flash="mrte")
     st, launches["fit gan resume"], loop = _pipeline_step(
         "fit gan resume", card, fit("gan", resume_cfg), (logs, "gan"), ck["gan"])
     check(st.step == GAN_RESUME and loop["loop/steps"] == GAN_RESUME - 4,
@@ -2112,7 +2302,7 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     for stage, _, steps, _ in PIPE_FITS[1:]:
         extra = ["--trace_dir", trace] if stage == "adm" else []
         st, launches[f"fit {stage}"], loops[stage] = _pipeline_step(
-            f"fit {stage}" + (" (traced)" if extra else ""), card,
+            f"fit {stage}" + (" (use_flash, bf16, traced)" if extra else ""), card,
             fit(stage, fit_cfgs[stage], *extra), (logs, stage), ck[stage])
         train = _metric_rows(logs, stage, "train/")
         val = _metric_rows(logs, stage, "val/")
@@ -2126,6 +2316,9 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
         torch.cuda.empty_cache()
     n = launches
     check(n["fit plm"]["B_tc"] > 0 and n["fit plm"]["C"] > 0, f"fit plm: B or C not launched {n['fit plm']}")
+    adm = n["fit adm"]
+    check(adm["B"] > 0 and adm["C"] > 0 and adm["B_tc"] == adm["B"] and adm["C_tc"] == adm["C"],
+          f"fit adm (use_flash, bf16): B and C must launch, only on the tensor cores: {adm}")
     check(n["fit vocoder"]["A"] > 0 and n["fit vocoder"]["A_bwd"] > 0,
           f"fit vocoder: kernel A not launched {n['fit vocoder']}")
     traces = os.listdir(trace)
@@ -2159,7 +2352,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         slices = _timed("slice", phase_slice, dev, card, root)
         _timed("serve reference", phase_serve_reference, dev, root)
-        serve = _timed("serve", phase_serve, dev, card, root)
+        serve = _timed("serve", phase_serve, dev, card, root, k)
         pump_launches = _timed("bandwidth", phase_bandwidth, card)
         _timed("train reference", phase_train_reference, dev)
         train = _timed("train", phase_train, dev, card, root)
@@ -2168,6 +2361,7 @@ def main() -> None:
         _timed("vocoder reference", phase_vocoder_reference, dev)
         vocoder = _timed("vocoder train", phase_vocoder_train, dev, card, root)
         pipeline = _timed("pipeline", phase_pipeline, dev, card, root, k["err"])
+    adm = train["adm_flash"]
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
     served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
 
@@ -2208,21 +2402,27 @@ def main() -> None:
             host_ms=k["split"]["mel_bwd"]["host_us"] / 1e3),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
             "flash_plm", "flash",
-            synth["flash"] + served["flash"] + train["flash"] + gan["flash"] + piped("B")[0],
+            synth["flash"] + served["flash"] + train["flash"] + adm["B"] + gan["flash"] + piped("B")[0],
             "(8, 1024, 16, 64) bf16 causal, with stats", library="scaled_dot_product_attention",
             launches_by_path={**{label: s["flash"] for label, s in slices.items()},
                               **{f"serve {label}": s["flash"] for label, s in serve.items()},
-                              "train": train["flash"], "gan": gan["flash"], **piped("B")[1]},
-            tc_launches=(synth["flash_tc"] + served["flash_tc"] + train["flash_tc"] + gan["flash_tc"]
-                         + piped("B_tc")[0]),
+                              "train": train["flash"], "train adm (use_flash)": adm["B"],
+                              "gan": gan["flash"], **piped("B")[1]},
+            tc_launches=(synth["flash_tc"] + served["flash_tc"] + train["flash_tc"] + adm["B_tc"]
+                         + gan["flash_tc"] + piped("B_tc")[0]),
             causal_launches_serve_prompted=serve["continuous prompted"]["flash_causal"],
             ms_dh96=k["ms"]["dh96"][0], plain_ms_dh96=k["ms"]["dh96"][1],
             bound_ms_dh96=k["bound"]["dh96"][0], library_ms_dh96=k["lib"]["dh96"],
+            ms_simt_dh96=k["simt"]["dh96"], device_ms_dh96=_ms(k["split"]["dh96"]["device_us"]),
+            device_ms_simt_dh96=_ms(k["split"]["dh96_simt"]["device_us"]),
+            host_ms_dh96=k["split"]["dh96"]["host_us"] / 1e3,
+            **{f"{key}_serve_mrte": val for key, val in k["serve_mrte"].items()},
             ms_prefill_2048=k["ms"]["prefill_2048"][0], plain_ms_prefill_2048=k["ms"]["prefill_2048"][1],
             bound_ms_prefill_2048=k["bound"]["prefill_2048"][0],
             library_ms_prefill_2048=k["lib"]["prefill_2048"],
             ms_simt=k["simt"]["flash_plm"],
-            tflops=k["tflops"]["flash_plm"],
+            tflops=k["tflops"]["flash_plm"], device_ms=_ms(k["split"]["flash_plm"]["device_us"]),
+            host_ms=k["split"]["flash_plm"]["host_us"] / 1e3,
             ms_mrte=k["ms"]["flash"][0], plain_ms_mrte=k["ms"]["flash"][1],
             bound_ms_mrte=k["bound"]["flash_mrte"][0], library_ms_mrte=k["lib"]["flash_mrte"],
             ms_simt_mrte=k["simt"]["flash_mrte"], device_ms_mrte=_ms(k["split"]["flash_mrte"]["device_us"]),
@@ -2231,16 +2431,25 @@ def main() -> None:
             ms_prefill_256=k["ms"]["prefill_256"][0], ms_simt_prefill_256=k["simt"]["prefill_256"],
             library_ms_prefill_256=k["lib"]["prefill_256"]),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",
-            "flash_bwd", "flash_bwd", train["flash_bwd"] + gan["flash_bwd"] + piped("C")[0],
+            "flash_bwd", "flash_bwd", train["flash_bwd"] + adm["C"] + gan["flash_bwd"] + piped("C")[0],
             "(8, 1024, 16, 64) bf16 causal", library="scaled_dot_product_attention backward",
-            launches_by_path={"train": train["flash_bwd"], "gan": gan["flash_bwd"], **piped("C")[1]},
-            tc_launches=train["flash_bwd_tc"] + gan["flash_bwd_tc"] + piped("C_tc")[0],
+            launches_by_path={"train": train["flash_bwd"], "train adm (use_flash)": adm["C"],
+                              "gan": gan["flash_bwd"], **piped("C")[1]},
+            tc_launches=train["flash_bwd_tc"] + adm["C_tc"] + gan["flash_bwd_tc"] + piped("C_tc")[0],
             ms_simt=k["simt"]["flash_bwd"], tflops=k["tflops"]["flash_bwd"],
+            device_ms=_ms(k["split"]["flash_bwd_plm"]["device_us"]),
+            host_ms=k["split"]["flash_bwd_plm"]["host_us"] / 1e3,
             ms_mrte=k["ms"]["flash_bwd_mrte"][0], plain_ms_mrte=k["ms"]["flash_bwd_mrte"][1],
             bound_ms_mrte=k["bound"]["flash_bwd_mrte"][0],
-            library_ms_mrte=k["lib"]["flash_bwd_mrte"],
+            library_ms_mrte=k["lib"]["flash_bwd_mrte"], ms_simt_mrte=k["simt"]["flash_bwd_mrte"],
             device_ms_mrte=_ms(k["split"]["flash_bwd_mrte"]["device_us"]),
-            host_ms_mrte=k["split"]["flash_bwd_mrte"]["host_us"] / 1e3),
+            device_ms_simt_mrte=_ms(k["split"]["flash_bwd_mrte_simt"]["device_us"]),
+            host_ms_mrte=k["split"]["flash_bwd_mrte"]["host_us"] / 1e3,
+            ms_dh96=k["ms"]["bwd_dh96"][0], plain_ms_dh96=k["ms"]["bwd_dh96"][1],
+            bound_ms_dh96=k["bound"]["bwd_dh96"][0], library_ms_dh96=k["lib"]["bwd_dh96"],
+            ms_simt_dh96=k["simt"]["bwd_dh96"], device_ms_dh96=_ms(k["split"]["bwd_dh96"]["device_us"]),
+            device_ms_simt_dh96=_ms(k["split"]["bwd_dh96_simt"]["device_us"]),
+            host_ms_dh96=k["split"]["bwd_dh96"]["host_us"] / 1e3),
         row("pump", "pump.cu", "tools/bw_ceiling.py:154", "pump", "pump", pump_launches,
             f"{PUMP_SHAPE} int8 x {PUMP_STEPS} passes",
             library=f"{PUMP_STEPS} x torch.sum(W.view(int32), dtype=int64)",

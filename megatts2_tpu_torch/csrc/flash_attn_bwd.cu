@@ -24,8 +24,10 @@
 // rounds back to -1e9 in fp32, so a log-sum-exp would give P = 1 there
 // instead of 1/Tk.
 //
-// 1. bf16 at Dh 64 and 128 — the tensor-core path (flash_bwd_dq_tc_kernel,
-//    flash_bwd_dkdv_tc_kernel), which PLM training takes.  What bounds it:
+// 1. bf16 at Dh 64, 96, 128 and 256 — the tensor-core path
+//    (flash_bwd_dq_tc_kernel, flash_bwd_dkdv_tc_kernel), which PLM training,
+//    the ADM with use_flash (Dh 96) and the GAN step's MRTE with use_flash
+//    (Dh 256) take.  What bounds it:
 //    operations.  At the PLM's (8, 1024, 16, 64) causal shape the nine
 //    products are 18 Dh FLOP a kept pair, ~62 GFLOP, ~0.06 ms at 989 TFLOP/s
 //    against ~0.035 ms for its 118.5 MB.  The design:
@@ -49,13 +51,27 @@
 //      two score tiles within the register file.
 //    * Query tiles are launched longest (causal) first in pass 1; pass 2's
 //      low key tiles, the longest, come first already.
+//    * At Dh 256 (the MRTE's (8, 64, 2, 256)) one warpgroup cannot hold
+//      pass 2's dk and dv (2 x 128 registers a thread) beside the score
+//      tiles.  The output columns are split over two blocks (grid z), as in
+//      kernel B: each loads full-width tiles, computes S and dP over all
+//      256 columns, and accumulates only its 128 columns of dq (pass 1) or
+//      of dk and dv (pass 2), the Dh 128 register plan (no spills).  Both
+//      halves compute D = rowsum(dP * P); the first writes it.  Shared
+//      memory: two own tiles of 32 KB and a 2-stage ring of two 32 KB
+//      tiles, ~195 KB, one block an SM; the MRTE gets 32 blocks a pass.
+//    * At Dh 96 (the ADM) the tiles are 128 wide, as in kernel B: TMA
+//      fills columns 96-127 with zeros, the score products take the 6 k16
+//      steps of the real columns, the products into dq, dk and dv run over
+//      both column blocks, and only 96 columns are stored.
 //
-// 2. fp32 (all head dims) and bf16 at Dh 96 and 256 — the SIMT path, the
-//    first version (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel; instances
-//    at Dh 64, 96, 128 and 256, the wrapper zero-padding other head dims
-//    and passing the true Dh's scale): FMA issue and the shared-memory
-//    reads feeding it bound it.  fp32 keeps full-fp32 products (TF32
-//    wgmma would not).  The design:
+// 2. fp32 (all head dims) and bf16 above Dh 256 — the SIMT path, the first
+//    version (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel; instances at Dh
+//    64, 96, 128, 256 and 512, the wrapper zero-padding other head dims,
+//    above 512 to a multiple of 256, and passing the true Dh's scale; above
+//    512 one instance loops over chunks of 256 columns, as kernel B's
+//    does): FMA issue and the shared-memory reads feeding it bound it.
+//    fp32 keeps full-fp32 products (TF32 wgmma would not).  The design:
 //    * Pass 1, one block per (b, h, 16 query rows), 4 warps of 4 rows, lane j
 //      owning key j of a 32-key tile (kernel B's layout).  Sweep A over the
 //      key tiles computes D per row; sweep B recomputes P and dp and
@@ -128,13 +144,11 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch, const T* src, l
   }
 }
 
-// s[i] = a_i . x and t[i] = b_i . y for ROWS rows a_i, b_i held at a, b
+// s[i] += a_i . x and t[i] += b_i . y for ROWS rows a_i, b_i held at a, b
 // (row pitch DH, read by broadcast) and one vector x, y per lane.
 template <int DH>
-__device__ __forceinline__ void dots(const float* a, const float* b, const float* x,
-                                     const float* y, float (&s)[ROWS], float (&t)[ROWS]) {
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) s[i] = t[i] = 0.f;
+__device__ __forceinline__ void add_dots(const float* a, const float* b, const float* x,
+                                         const float* y, float (&s)[ROWS], float (&t)[ROWS]) {
 #pragma unroll 4
   for (int d = 0; d < DH; ++d) {
     const float xd = x[d], yd = y[d];
@@ -151,14 +165,26 @@ constexpr size_t smem_bytes() {  // both passes: two [BR][DH] and two [BT][DH + 
   return (2 * BR * DH + 2 * BT * (DH + 1)) * sizeof(float);
 }
 
-// ---- pass 1: D and dq, one block per (b, h, BR query rows) ----------------
-template <typename T, int DH>
+// Both passes take the head dim as nc chunks of DH columns: NC = 1 (one
+// chunk, fixed at compile time) for the instances up to 512; NC = 0 above,
+// with nc = Dh / 256 chunks given at run time.  Block x = (tile) * nc +
+// chunk writes output columns [chunk DH, (chunk + 1) DH).  With one chunk
+// the block's own rows are loaded once; with more, the dot products sum over
+// the chunks in order, all four tiles of each chunk staged in turn (the
+// forward's order, so the recomputed scores equal the forward's bit for
+// bit), then the block's own chunk of the tiles its products read is staged
+// again unless it was the last.
+
+// ---- pass 1: D and dq, one block per (b, h, BR query rows, chunk) ----------
+template <typename T, int DH, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ g, const int* __restrict__ k_lens,
                     const float* __restrict__ m, const float* __restrict__ l,
-                    float* __restrict__ dsum, T* __restrict__ dq, int Tq, int Tk, Strides sq,
-                    Strides sk, Strides sv, Strides sg, Strides sdq, int causal, float scale) {
+                    float* __restrict__ dsum, T* __restrict__ dq, int Tq, int Tk, int n_chunks,
+                    Strides sq, Strides sk, Strides sv, Strides sg, Strides sdq, int causal,
+                    float scale) {
+  const int nc = NC ? NC : n_chunks;
   constexpr int C = DH / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* q_s = smem;                 // [BR][DH]
@@ -167,7 +193,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* v_s = k_s + BT * (DH + 1);  // [BT][DH + 1]
 
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y;
-  const int q0 = blockIdx.x * BR;
+  const int chunk = blockIdx.x % nc;
+  const int q0 = blockIdx.x / nc * BR;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const int klen = k_lens ? min(max(k_lens[b], 0), Tk) : Tk;
@@ -177,10 +204,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (causal) kend = min(kend, min(q0 + BR, Tq));
   }
 
-  load_rows<T, DH>(q_s, DH, q + b * sq.b + h * sq.h, sq.t, q0, BR, Tq);
-  load_rows<T, DH>(g_s, DH, g + b * sg.b + h * sg.h, sg.t, q0, BR, Tq);
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* gb = g + b * sg.b + h * sg.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
+  if (nc == 1) {
+    load_rows<T, DH>(q_s, DH, qb, sq.t, q0, BR, Tq);
+    load_rows<T, DH>(g_s, DH, gb, sg.t, q0, BR, Tq);
+  }
   const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
 
   float m_r[ROWS], l_r[ROWS], d_r[ROWS];
@@ -196,14 +227,27 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float* kr = k_s + lane * (DH + 1);  // key j = kt + lane
   const float* vr = v_s + lane * (DH + 1);
 
+  // s = q . k_j and dp = g . v_j over every chunk
+  auto tile_dots = [&](int kt, float (&s)[ROWS], float (&dp)[ROWS]) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) s[i] = dp[i] = 0.f;
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous chunk or tile is consumed (and q_s, g_s are written)
+      if (nc > 1) {
+        load_rows<T, DH>(q_s, DH, qb + cc * DH, sq.t, q0, BR, Tq);
+        load_rows<T, DH>(g_s, DH, gb + cc * DH, sg.t, q0, BR, Tq);
+      }
+      load_rows<T, DH>(k_s, DH + 1, kb + cc * DH, sk.t, kt, BT, Tk);
+      load_rows<T, DH>(v_s, DH + 1, vb + cc * DH, sv.t, kt, BT, Tk);
+      __syncthreads();
+      add_dots<DH>(qr, gr, kr, vr, s, dp);
+    }
+  };
+
   // sweep A: D = sum_j dp * P, lane-partial then reduced over the warp
   for (int kt = 0; kt < kend; kt += BT) {
-    __syncthreads();  // the previous tile is consumed (and q_s, g_s are written)
-    load_rows<T, DH>(k_s, DH + 1, kb, sk.t, kt, BT, Tk);
-    load_rows<T, DH>(v_s, DH + 1, vb, sv.t, kt, BT, Tk);
-    __syncthreads();
-    float s[ROWS], dp[ROWS];  // q . k_j and g . v_j
-    dots<DH>(qr, gr, kr, vr, s, dp);
+    float s[ROWS], dp[ROWS];
+    tile_dots(kt, s, dp);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       const int qi = q0 + warp * ROWS + i;
@@ -214,19 +258,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) d_r[i] = warp_sum(d_r[i]);
 
-  // sweep B: ds = P (dp - D), rounded; dq = ds K
+  // sweep B: ds = P (dp - D), rounded; dq = ds K, over this block's chunk of K
   float acc[ROWS][C];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   for (int kt = 0; kt < kend; kt += BT) {
-    __syncthreads();
-    load_rows<T, DH>(k_s, DH + 1, kb, sk.t, kt, BT, Tk);
-    load_rows<T, DH>(v_s, DH + 1, vb, sv.t, kt, BT, Tk);
-    __syncthreads();
     float s[ROWS], dp[ROWS], ds[ROWS];
-    dots<DH>(qr, gr, kr, vr, s, dp);
+    tile_dots(kt, s, dp);
+    if (chunk != nc - 1) {
+      __syncthreads();
+      load_rows<T, DH>(k_s, DH + 1, kb + chunk * DH, sk.t, kt, BT, Tk);
+      __syncthreads();
+    }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       const int qi = q0 + warp * ROWS + i;
@@ -251,23 +296,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < ROWS; ++i) {
     const int qi = q0 + warp * ROWS + i;
     if (qi >= Tq) continue;
-    if (lane == 0) dsum[stat0 + qi] = d_r[i];
-    T* row = dq + b * sdq.b + qi * sdq.t + h * sdq.h;
+    if (lane == 0 && chunk == 0) dsum[stat0 + qi] = d_r[i];  // every chunk holds the same D
+    T* row = dq + b * sdq.b + qi * sdq.t + h * sdq.h + chunk * DH;
 #pragma unroll
     for (int c = 0; c < C; ++c) row[c * 32 + lane] = from_f32<T>(acc[i][c] * scale);
   }
 }
 
-// ---- pass 2: dk and dv, one block per (b, h, BR keys) ---------------------
-template <typename T, int DH>
+// ---- pass 2: dk and dv, one block per (b, h, BR keys, chunk) ---------------
+template <typename T, int DH, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
                       const int* __restrict__ k_lens, const float* __restrict__ m,
                       const float* __restrict__ l, const float* __restrict__ dsum,
-                      T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, Strides sq,
-                      Strides sk, Strides sv, Strides sg, Strides sdk, Strides sdv, int causal,
-                      float scale) {
+                      T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int n_chunks,
+                      Strides sq, Strides sk, Strides sv, Strides sg, Strides sdk, Strides sdv,
+                      int causal, float scale) {
+  const int nc = NC ? NC : n_chunks;
   constexpr int C = DH / 32;
   extern __shared__ float smem[];
   float* k_s = smem;                 // [BR][DH]
@@ -276,7 +322,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* g_s = q_s + BT * (DH + 1);  // [BT][DH + 1]
 
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y;
-  const int k0 = blockIdx.x * BR;
+  const int chunk = blockIdx.x % nc;
+  const int k0 = blockIdx.x / nc * BR;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const int klen = k_lens ? min(max(k_lens[b], 0), Tk) : Tk;
@@ -286,8 +333,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (causal) qstart = min(k0, Tq);  // rows before the block's first key
   }
 
-  load_rows<T, DH>(k_s, DH, k + b * sk.b + h * sk.h, sk.t, k0, BR, Tk);
-  load_rows<T, DH>(v_s, DH, v + b * sv.b + h * sv.h, sv.t, k0, BR, Tk);
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  if (nc == 1) {
+    load_rows<T, DH>(k_s, DH, kb, sk.t, k0, BR, Tk);
+    load_rows<T, DH>(v_s, DH, vb, sv.t, k0, BR, Tk);
+  }
   const T* qb = q + b * sq.b + h * sq.h;
   const T* gb = g + b * sg.b + h * sg.h;
   const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
@@ -303,18 +354,32 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* gr = g_s + lane * (DH + 1);
 
   for (int qt = qstart; qt < qend; qt += BT) {
-    __syncthreads();  // the previous tile is consumed (and k_s, v_s are written)
-    load_rows<T, DH>(q_s, DH + 1, qb, sq.t, qt, BT, Tq);
-    load_rows<T, DH>(g_s, DH + 1, gb, sg.t, qt, BT, Tq);
-    __syncthreads();
+    float s[ROWS], dp[ROWS];  // k_r . q_i and v_r . g_i, over every chunk
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r] = dp[r] = 0.f;
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous chunk or tile is consumed (and k_s, v_s are written)
+      if (nc > 1) {
+        load_rows<T, DH>(k_s, DH, kb + cc * DH, sk.t, k0, BR, Tk);
+        load_rows<T, DH>(v_s, DH, vb + cc * DH, sv.t, k0, BR, Tk);
+      }
+      load_rows<T, DH>(q_s, DH + 1, qb + cc * DH, sq.t, qt, BT, Tq);
+      load_rows<T, DH>(g_s, DH + 1, gb + cc * DH, sg.t, qt, BT, Tq);
+      __syncthreads();
+      add_dots<DH>(kr, vr, qr, gr, s, dp);
+    }
+    if (chunk != nc - 1) {  // this block's chunk of Q and g, for dk and dv
+      __syncthreads();
+      load_rows<T, DH>(q_s, DH + 1, qb + chunk * DH, sq.t, qt, BT, Tq);
+      load_rows<T, DH>(g_s, DH + 1, gb + chunk * DH, sg.t, qt, BT, Tq);
+      __syncthreads();
+    }
     const int qi = qt + lane;  // this lane's query row
     const bool row = qi < Tq;
     const float m_i = row ? m[stat0 + qi] : 0.f;
     const float l_i = row ? l[stat0 + qi] : 1.f;
     const float d_i = row ? dsum[stat0 + qi] : 0.f;
 
-    float s[ROWS], dp[ROWS];  // k_r . q_i and v_r . g_i
-    dots<DH>(kr, vr, qr, gr, s, dp);
     float pc[ROWS], ds[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -348,8 +413,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < ROWS; ++r) {
     const int j = k0 + warp * ROWS + r;
     if (j >= Tk) continue;
-    T* krow = dk + b * sdk.b + j * sdk.t + h * sdk.h;
-    T* vrow = dv + b * sdv.b + j * sdv.t + h * sdv.h;
+    T* krow = dk + b * sdk.b + j * sdk.t + h * sdk.h + chunk * DH;
+    T* vrow = dv + b * sdv.b + j * sdv.t + h * sdv.h + chunk * DH;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       krow[c * 32 + lane] = from_f32<T>(dk_acc[r][c] * scale);
@@ -370,11 +435,11 @@ struct Args {
   float scale;
 };
 
-template <typename T, int DH>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, int DH, int NC>
+cudaError_t launch(const Args& a, int nc, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  auto k1 = flash_bwd_dq_kernel<T, DH>;
-  auto k2 = flash_bwd_dkdv_kernel<T, DH>;
+  auto k1 = flash_bwd_dq_kernel<T, DH, NC>;
+  auto k2 = flash_bwd_dkdv_kernel<T, DH, NC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -387,35 +452,42 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* g = static_cast<const T*>(a.g);
-  k1<<<dim3((a.Tq + BR - 1) / BR, a.H, a.B), THREADS, smem, stream>>>(
-      q, k, v, g, a.k_lens, a.m, a.l, a.dsum, static_cast<T*>(a.dq), a.Tq, a.Tk, a.sq, a.sk,
+  k1<<<dim3((a.Tq + BR - 1) / BR * nc, a.H, a.B), THREADS, smem, stream>>>(
+      q, k, v, g, a.k_lens, a.m, a.l, a.dsum, static_cast<T*>(a.dq), a.Tq, a.Tk, nc, a.sq, a.sk,
       a.sv, a.sg, a.sdq, a.causal, a.scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  k2<<<dim3((a.Tk + BR - 1) / BR, a.H, a.B), THREADS, smem, stream>>>(
+  k2<<<dim3((a.Tk + BR - 1) / BR * nc, a.H, a.B), THREADS, smem, stream>>>(
       q, k, v, g, a.k_lens, a.m, a.l, a.dsum, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.Tq, a.Tk, a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.causal, a.scale);
+      a.Tq, a.Tk, nc, a.sq, a.sk, a.sv, a.sg, a.sdk, a.sdv, a.causal, a.scale);
   return cudaGetLastError();
 }
+
+// Above 512 the head dim runs in chunks of WIDE columns (the wrapper pads it
+// to a multiple of WIDE).
+constexpr int WIDE = 256;
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const Args& a, cudaStream_t stream) {
   switch (Dh) {
     case 64:
-      return launch<T, 64>(a, stream);
+      return launch<T, 64, 1>(a, 1, stream);
     case 96:
-      return launch<T, 96>(a, stream);
+      return launch<T, 96, 1>(a, 1, stream);
     case 128:
-      return launch<T, 128>(a, stream);
+      return launch<T, 128, 1>(a, 1, stream);
     case 256:
-      return launch<T, 256>(a, stream);
+      return launch<T, 256, 1>(a, 1, stream);
+    case 512:
+      return launch<T, 512, 1>(a, 1, stream);
     default:
+      if (Dh > 512 && Dh % WIDE == 0) return launch<T, WIDE, 0>(a, Dh / WIDE, stream);
       return cudaErrorInvalidValue;
   }
 }
 
 
-// ---- the tensor-core path: bf16, Dh 64 and 128 -----------------------------
+// ---- the tensor-core path: bf16, Dh 64, 96, 128 and 256 --------------------
 namespace tc {
 
 constexpr int BR = 64;        // rows a block owns: query rows (pass 1) or keys (pass 2)
@@ -423,15 +495,19 @@ constexpr int BK = 64;        // keys per streamed tile in pass 1
 constexpr int STAGES = 2;
 constexpr int THREADS = 160;  // warps 0-3 compute, warp 4 loads
 
-template <int DH>
-struct Pass2 {  // query rows per streamed tile in pass 2
-  static constexpr int BQ = DH == 64 ? 64 : 32;
-};
-
+// Tiles are whole 64-column blocks: DP is the head dim rounded up to them
+// (96 -> 128; TMA fills columns 96-127 with zeros).  A block accumulates DV
+// of the DP output columns (of dq in pass 1, of dk and dv in pass 2): all of
+// them up to Dh 128; at Dh 256 one half, the other half in a second block
+// (grid z), so the accumulators keep the Dh 128 register plan.  Both blocks
+// compute the full scores over Dh 256.
 template <int DH>
 struct Layout {  // byte offsets in shared memory, either pass
-  static constexpr int OWN = BR * DH * 2;     // one of the block's two own tiles
-  static constexpr int STREAM = BK * DH * 2;  // one streamed tile, pass 1 (pass 2's are no larger)
+  static constexpr int DP = (DH + 63) / 64 * 64;
+  static constexpr int DV = DP > 128 ? 128 : DP;
+  static constexpr int BQ = DP == 64 ? 64 : 32;  // query rows per streamed tile in pass 2
+  static constexpr int OWN = BR * DP * 2;     // one of the block's two own tiles
+  static constexpr int STREAM = BK * DP * 2;  // one streamed tile, pass 1 (pass 2's are no larger)
   static constexpr int RING = 2 * OWN;        // stage s: two streamed tiles at RING + 2 s STREAM
   static constexpr int STATS = RING + 2 * STAGES * STREAM;  // pass 2, stage s: m, 1/l, D of its rows
   static constexpr int STAT_STAGE = 3 * 64 * 4;
@@ -525,7 +601,7 @@ __device__ __forceinline__ void load_all(unsigned char* smem, uint64_t* own, uin
                                          const float* m, const float* l, const float* dsum,
                                          long long stat0, int Tq) {
   using L = Layout<DH>;
-  constexpr int NB = DH / 64;
+  constexpr int NB = L::DP / 64;
   const int lane = threadIdx.x % 32;
   if (lane == 0) {
     sm90::mbar_expect_tx(own, 2 * L::OWN);
@@ -534,7 +610,7 @@ __device__ __forceinline__ void load_all(unsigned char* smem, uint64_t* own, uin
       sm90::tma_load_4d(smem + L::OWN + nb * BR * 128, b, nb * 64, h, own_row, bb, own);
     }
   }
-  const int bytes = rows * DH * 2;
+  const int bytes = rows * L::DP * 2;
   for (int i = 0; i < n; ++i) {
     const int s = i % STAGES;
     if (i >= STAGES) sm90::mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
@@ -562,7 +638,8 @@ __device__ __forceinline__ void load_all(unsigned char* smem, uint64_t* own, uin
 }
 
 // X (64 x N) = A (64 x DH, own tile at a_addr) B^T (N rows x DH at b_addr, N-row
-// column blocks), both K-major; zeroes X first.
+// column blocks), both K-major; zeroes X first.  The zero columns past DH
+// (of a padded tile) are left out.
 template <int DH, int N>
 __device__ __forceinline__ void scores(float (&x)[N / 2], uint32_t a_addr, uint32_t b_addr) {
 #pragma unroll
@@ -576,15 +653,16 @@ __device__ __forceinline__ void scores(float (&x)[N / 2], uint32_t a_addr, uint3
   }
 }
 
-// acc[nb] (64 x 64 dims nb) += A (64 x 16 kk, fragments) B (rows x DH tile
-// at addr, MN-major), over the KK k16 steps of one streamed tile.
-template <int DH, int KK>
-__device__ __forceinline__ void accumulate(float (&acc)[DH / 64][32], const uint32_t (&a)[KK][4],
+// acc[nb] (64 x 64 dims nb) += A (64 x 16 kk, fragments) B (rows x 64 NB
+// columns at addr, MN-major: NB column blocks of a tile), over the KK k16
+// steps of one streamed tile.
+template <int NB, int KK>
+__device__ __forceinline__ void accumulate(float (&acc)[NB][32], const uint32_t (&a)[KK][4],
                                            uint32_t addr) {
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-    for (int nb = 0; nb < DH / 64; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
       sm90::wgmma_rs_n64<1>(acc[nb], a[kk], sm90::desc_mnmajor(addr + nb * (KK * 16) * 128 + kk * 2048));
 }
 
@@ -597,22 +675,23 @@ __device__ __forceinline__ void fragments(uint32_t (&a)[KK][4], const float (&x)
     for (int w = 0; w < 4; ++w) a[kk][w] = sm90::pack_bf16(x[8 * kk + 2 * w], x[8 * kk + 2 * w + 1]);
 }
 
-// Writes rows r0 and r0 + 8 of a 64 x DH accumulator times `mul`, rows at
-// or past `limit` skipped.
-template <int DH>
+// Writes rows r0 and r0 + 8 of a 64 x 64 NB accumulator, columns col0 on,
+// times `mul`; rows at or past `limit` and columns at or past DH skipped.
+template <int DH, int NB>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long st, int row0, int limit,
-                                           const float (&acc)[DH / 64][32], float mul, int c0) {
+                                           int col0, const float (&acc)[NB][32], float mul, int c0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = row0 + 8 * r;
     if (t >= limit) continue;
-    __nv_bfloat16* row = base + t * st;
+    __nv_bfloat16* row = base + t * st + col0;
 #pragma unroll
-    for (int nb = 0; nb < DH / 64; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) = __floats2bfloat162_rn(
-            acc[nb][4 * c + 2 * r] * mul, acc[nb][4 * c + 2 * r + 1] * mul);
+        if (DH % 64 == 0 || col0 + nb * 64 + 8 * c < DH)
+          *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) = __floats2bfloat162_rn(
+              acc[nb][4 * c + 2 * r] * mul, acc[nb][4 * c + 2 * r + 1] * mul);
   }
 }
 
@@ -622,9 +701,9 @@ __device__ __forceinline__ void consumed(uint64_t* empty, int s) {
   if (threadIdx.x % 32 == 0) sm90::mbar_arrive(&empty[s]);
 }
 
-// ---- pass 1: D and dq, one block per (b, h, 64 query rows) -----------------
+// ---- pass 1: D and dq, one block per (b, h, 64 query rows, DV columns) -----
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, DH > 128 ? 1 : 2)
 flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                        const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
                        const int* __restrict__ k_lens, const float* __restrict__ m,
@@ -632,10 +711,11 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
                        __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H, Strides sdq,
                        int causal, float scale) {
   using L = Layout<DH>;
-  constexpr int NB = DH / 64;
+  constexpr int NV = L::DV / 64;  // column blocks of this block's dq
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   uint64_t *own, *full, *empty;
   unsigned char* smem = setup<DH>(smem_raw, own, full, empty, 1);
+  const int col0 = L::DP > L::DV ? blockIdx.z * L::DV : 0;  // this block's first dq column
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest causal tiles first
@@ -667,9 +747,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
   const uint32_t q_addr = sm90::smem_addr(smem), g_addr = q_addr + L::OWN;
   sm90::mbar_wait(own, 0);
 
-  float acc[NB][32];
+  float acc[NV][32];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NV; ++nb)
 #pragma unroll
     for (int x = 0; x < 32; ++x) acc[nb][x] = 0.f;
 
@@ -713,23 +793,23 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_cons
     uint32_t ds[BK / 16][4];
     fragments<BK / 16>(ds, sc);
     sm90::wgmma_fence();
-    accumulate<DH, BK / 16>(acc, ds, k_addr);
+    accumulate<NV, BK / 16>(acc, ds, k_addr + (col0 / 64) * (BK * 128));  // the block's columns of K
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) sm90::fence_operands(acc[nb]);
+    for (int nb = 0; nb < NV; ++nb) sm90::fence_operands(acc[nb]);
     consumed(empty, s);
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + 8 * r;
-    if (qi < Tq && lane % 4 == 0) dsum[stat0 + qi] = d_r[r];
+    if (qi < Tq && lane % 4 == 0 && col0 == 0) dsum[stat0 + qi] = d_r[r];  // both halves hold D
   }
-  store_rows<DH>(dq + b * sdq.b + h * sdq.h, sdq.t, q0 + r0, Tq, acc, scale, c0);
+  store_rows<DH>(dq + b * sdq.b + h * sdq.h, sdq.t, q0 + r0, Tq, col0, acc, scale, c0);
 }
 
-// ---- pass 2: dk and dv, one block per (b, h, 64 keys) ----------------------
+// ---- pass 2: dk and dv, one block per (b, h, 64 keys, DV columns) ----------
 template <int DH>
 __global__ void __launch_bounds__(THREADS, DH == 64 ? 2 : 1)
 flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
@@ -739,11 +819,12 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_co
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Tq,
                          int Tk, int H, Strides sdk, Strides sdv, int causal, float scale) {
   using L = Layout<DH>;
-  constexpr int NB = DH / 64;
-  constexpr int BQ = Pass2<DH>::BQ;
+  constexpr int NV = L::DV / 64;  // column blocks of this block's dk and dv
+  constexpr int BQ = L::BQ;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   uint64_t *own, *full, *empty;
   unsigned char* smem = setup<DH>(smem_raw, own, full, empty, 33);
+  const int col0 = L::DP > L::DV ? blockIdx.z * L::DV : 0;  // this block's first dk and dv column
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int k0 = blockIdx.y * BR;
@@ -766,9 +847,9 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_co
 
   const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
   const uint32_t k_addr = sm90::smem_addr(smem), v_addr = k_addr + L::OWN;
-  float dk_acc[NB][32], dv_acc[NB][32];
+  float dk_acc[NV][32], dv_acc[NV][32];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NV; ++nb)
 #pragma unroll
     for (int x = 0; x < 32; ++x) dk_acc[nb][x] = dv_acc[nb][x] = 0.f;
   if (ntiles > 0) sm90::mbar_wait(own, 0);
@@ -799,26 +880,27 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_co
     fragments<BQ / 16>(pf, sc);
     fragments<BQ / 16>(dsf, dp);
     sm90::wgmma_fence();
-    accumulate<DH, BQ / 16>(dv_acc, pf, g_addr);   // dv += P^T g
-    accumulate<DH, BQ / 16>(dk_acc, dsf, q_addr);  // dk += dS^T Q
+    const uint32_t cols = (col0 / 64) * (BQ * 128);  // the block's columns of g and Q
+    accumulate<NV, BQ / 16>(dv_acc, pf, g_addr + cols);   // dv += P^T g
+    accumulate<NV, BQ / 16>(dk_acc, dsf, q_addr + cols);  // dk += dS^T Q
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+    for (int nb = 0; nb < NV; ++nb) {
       sm90::fence_operands(dv_acc[nb]);
       sm90::fence_operands(dk_acc[nb]);
     }
     consumed(empty, s);
   }
 
-  store_rows<DH>(dk + b * sdk.b + h * sdk.h, sdk.t, k0 + r0, Tk, dk_acc, scale, c0);
-  store_rows<DH>(dv + b * sdv.b + h * sdv.h, sdv.t, k0 + r0, Tk, dv_acc, 1.f, c0);
+  store_rows<DH>(dk + b * sdk.b + h * sdk.h, sdk.t, k0 + r0, Tk, col0, dk_acc, scale, c0);
+  store_rows<DH>(dv + b * sdv.b + h * sdv.h, sdv.t, k0 + r0, Tk, col0, dv_acc, 1.f, c0);
 }
 
 template <int DH>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg, mq2, mg2;
-  constexpr int BQ = Pass2<DH>::BQ;
+  constexpr int BQ = Layout<DH>::BQ;
   cudaError_t e = sm90::make_tile_map(&mq, a.q, a.B, a.Tq, a.H, DH, a.sq.b, a.sq.t, a.sq.h, BR);
   if (e == cudaSuccess) e = sm90::make_tile_map(&mg, a.g, a.B, a.Tq, a.H, DH, a.sg.b, a.sg.t, a.sg.h, BR);
   if (e == cudaSuccess) e = sm90::make_tile_map(&mk, a.k, a.B, a.Tk, a.H, DH, a.sk.b, a.sk.t, a.sk.h, BK);
@@ -830,13 +912,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   e = sm90::allow_smem<flash_bwd_dq_tc_kernel<DH>>(smem);
   if (e == cudaSuccess) e = sm90::allow_smem<flash_bwd_dkdv_tc_kernel<DH>>(smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_tc_kernel<DH><<<dim3(a.B * a.H, (a.Tq + BR - 1) / BR), THREADS, smem, stream>>>(
+  constexpr int halves = Layout<DH>::DP / Layout<DH>::DV;  // grid z: 2 at Dh 256
+  flash_bwd_dq_tc_kernel<DH><<<dim3(a.B * a.H, (a.Tq + BR - 1) / BR, halves), THREADS, smem, stream>>>(
       mq, mk, mv, mg, a.k_lens, a.m, a.l, a.dsum, static_cast<__nv_bfloat16*>(a.dq), a.Tq, a.Tk,
       a.H, a.sdq, a.causal, a.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // pass 2's K/V maps: the block's own 64-key tiles (BR rows, as BK)
-  flash_bwd_dkdv_tc_kernel<DH><<<dim3(a.B * a.H, (a.Tk + BR - 1) / BR), THREADS, smem, stream>>>(
+  flash_bwd_dkdv_tc_kernel<DH><<<dim3(a.B * a.H, (a.Tk + BR - 1) / BR, halves), THREADS, smem,
+                                  stream>>>(
       mq2, mk, mv, mg2, a.k_lens, a.m, a.l, a.dsum, static_cast<__nv_bfloat16*>(a.dk),
       static_cast<__nv_bfloat16*>(a.dv), a.Tq, a.Tk, a.H, a.sdk, a.sdv, a.causal, a.scale);
   return cudaGetLastError();
@@ -849,11 +933,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // dk, dv of the same shapes; element strides over (b, t, h), unit stride over
 // Dh.  m, l (the forward's row max and row sum) and dsum (scratch, written
 // here) are contiguous (B, H, Tq) fp32.  k_lens is (B,) int32 or null (all
-// keys valid).  is_bf16 selects __nv_bfloat16 over float for the seven
-// tensors: 1 takes the tensor-core path at Dh 64 and 128 (bf16 tensors with
-// 16-byte aligned bases and strides, dq/dk/dv contiguous) and the SIMT path at
-// Dh 256; 2 takes the SIMT path at every head dim, to compare the two.
-// Launches pass 1 then pass 2 on `stream`.
+// keys valid).  Dh is 64, 96, 128, 256, 512 or a multiple of 256 above.
+// is_bf16 selects __nv_bfloat16 over float for the seven tensors: 1 takes
+// the tensor-core path at Dh 64, 96, 128 and 256 (bf16 tensors with 16-byte
+// aligned bases and strides, dq/dk/dv contiguous) and the SIMT path above;
+// 2 takes the SIMT path at every head dim, to compare the two.  Launches
+// pass 1 then pass 2 on `stream`.
 extern "C" int mt_flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
                                  const int* k_lens, const float* m, const float* l,
                                  float* dsum, void* dq, void* dk, void* dv, int B, int Tq,
@@ -869,8 +954,12 @@ extern "C" int mt_flash_attn_bwd(const void* q, const void* k, const void* v, co
   cudaError_t e;
   if (is_bf16 == 1 && Dh == 64)
     e = tc::launch<64>(a, st);
+  else if (is_bf16 == 1 && Dh == 96)
+    e = tc::launch<96>(a, st);
   else if (is_bf16 == 1 && Dh == 128)
     e = tc::launch<128>(a, st);
+  else if (is_bf16 == 1 && Dh == 256)
+    e = tc::launch<256>(a, st);
   else
     e = is_bf16 ? dispatch_dh<__nv_bfloat16>(Dh, a, st) : dispatch_dh<float>(Dh, a, st);
   return static_cast<int>(e);

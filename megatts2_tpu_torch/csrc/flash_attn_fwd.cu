@@ -12,9 +12,10 @@
 //
 // Two implementations, chosen by dtype and head dim (dispatch, not fallback):
 //
-// 1. bf16 at Dh 64, 128 and 256 — the tensor-core path (flash_fwd_tc_kernel),
-//    which the PLM's training, its prompt prefill and the MRTE's phone
-//    encoder (Dh 256) take.  What bounds it:
+// 1. bf16 at Dh 64, 96, 128 and 256 — the tensor-core path
+//    (flash_fwd_tc_kernel), which the PLM's training, its prompt prefill,
+//    the ADM with use_flash (Dh 96) and the MRTE's phone encoder (Dh 256)
+//    take.  What bounds it:
 //    operations.  At the PLM's (8, 1024, 16, 64) causal shape it does
 //    4 Dh FLOP per kept (query, key) pair, ~25 GFLOP, ~0.025 ms at 989
 //    TFLOP/s against ~0.02 ms for its 68 MB.  The design:
@@ -49,12 +50,26 @@
 //      of registers), the MRTE shape gets 32 blocks, shared memory is Q 32
 //      KB + 2 stages of K 32 + V 16 KB.  Only the first half writes m and l
 //      (both compute the same); no atomics, deterministic.
+//    * At Dh 96 (the ADM at tc_emb_dim 512: 8 heads of 96) 96 bf16 columns
+//      are 192 bytes, no whole number of 128-byte swizzled boxes.  The
+//      kernel runs the Dh 128 layout with tensor maps whose inner extent is
+//      96: TMA fills columns 96-127 of the second box with zeros, which add
+//      nothing to a product.  Q K^T takes only the 6 k16 steps of the real
+//      columns; P V runs over both 64-column blocks (4/3 of the work of
+//      64 + 32, with one descriptor layout where a 64 + 32 split with a
+//      64-byte swizzle would need a second) and the epilogue stores 96
+//      columns.  The wrapper passes the tensors unpadded.
 //
-// 2. fp32 (all head dims) and bf16 at Dh 96 — the SIMT path, the first
+// 2. fp32 (all head dims) and bf16 above Dh 256 — the SIMT path, the first
 //    version (flash_fwd_kernel); other bf16 reaches it only when the caller
-//    asks (simt), to compare the two.  Instances at Dh 64, 96, 128 and 256;
-//    the wrapper zero-pads any other head dim up to 256 to the next one and
-//    passes the true Dh's scale.  fp32 keeps full-fp32 products (TF32 wgmma would
+//    asks (simt), to compare the two.  Instances at Dh 64, 96, 128, 256 and
+//    512; the wrapper zero-pads any other head dim to the next one, and
+//    above 512 to the next multiple of 256, and passes the true Dh's scale.
+//    Above 512 one instance (chunks of 256 columns) loops over the chunks:
+//    each block sums the scores over every chunk of Q and K, staged in
+//    turn, and accumulates one chunk of the output (grid x), so shared
+//    memory stays that of Dh 256 at any head dim; S is recomputed once a
+//    chunk, a cost that only such head dims pay.  fp32 keeps full-fp32 products (TF32 wgmma would
 //    not).  What bounds it: at short sequences launch latency and the
 //    dependent chain of shared-memory reads (at the MRTE's (8, 64, 2, 256)
 //    bf16, ~31 us of device time on an H100); at long sequences FMA issue.
@@ -123,13 +138,47 @@ constexpr size_t smem_bytes() {
   return (BQ * DH + BK * (DH + 1) + BK * DH) * sizeof(float);
 }
 
+// n rows of DH values from a strided tensor into shared memory, fp32, with
+// row pitch `pitch`; rows at or past `limit` are zero.
 template <typename T, int DH>
+__device__ __forceinline__ void load_rows(float* dst, int pitch, const T* src, long long st,
+                                          int row0, int n, int limit) {
+  for (int idx = threadIdx.x; idx < n * DH; idx += THREADS) {
+    const int r = idx / DH, d = idx % DH;
+    const int t = row0 + r;
+    dst[r * pitch + d] = t < limit ? to_f32(src[t * st + d]) : 0.f;
+  }
+}
+
+// The same rows of two tensors in one pass (twice the loads in flight).
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows2(float* d1, int p1, const T* s1, long long st1, float* d2,
+                                           int p2, const T* s2, long long st2, int row0, int n,
+                                           int limit) {
+  for (int idx = threadIdx.x; idx < n * DH; idx += THREADS) {
+    const int r = idx / DH, d = idx % DH;
+    const int t = row0 + r;
+    const bool in = t < limit;
+    d1[r * p1 + d] = in ? to_f32(s1[t * st1 + d]) : 0.f;
+    d2[r * p2 + d] = in ? to_f32(s2[t * st2 + d]) : 0.f;
+  }
+}
+
+// The head dim is nc chunks of DH columns: NC = 1 (one chunk, fixed at
+// compile time) for the instances up to 512; NC = 0 above, with nc = Dh / 256
+// chunks given at run time.  Block x = (query tile) * nc + chunk writes
+// output columns [chunk DH, (chunk + 1) DH).  With one chunk Q is loaded
+// once; with more, the scores sum over the chunks in order (kernel C
+// recomputes them in the same order), each chunk of Q and K staged in turn,
+// and the block's own chunk of V is loaded beside its chunk of K.
+template <typename T, int DH, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ k_lens,
                  T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-                 int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,
+                 int Tq, int Tk, int n_chunks, Strides sq, Strides sk, Strides sv, Strides so,
                  int causal, float scale) {
+  const int nc = NC ? NC : n_chunks;
   constexpr int C = DH / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* q_s = smem;                 // [BQ][DH]
@@ -138,7 +187,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int chunk = blockIdx.x % nc;  // this block's chunk of output columns
+  const int q0 = blockIdx.x / nc * BQ;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -155,11 +205,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
-  for (int idx = tid; idx < BQ * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx % DH;
-    const int qi = q0 + r;
-    q_s[idx] = qi < Tq ? to_f32(qb[qi * sq.t + d]) : 0.f;
-  }
+  if (nc == 1) load_rows<T, DH>(q_s, DH, qb, sq.t, q0, BQ, Tq);
 
   float m_i[ROWS], l_i[ROWS], acc[ROWS][C];
 #pragma unroll
@@ -170,28 +216,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
+  const float* kr = k_s + lane * (DH + 1);
+  const float* qr = q_s + warp * ROWS * DH;
   for (int kt = 0; kt < kend; kt += BK) {
-    __syncthreads();  // the previous tile is consumed (and q_s is written)
-    for (int idx = tid; idx < BK * DH; idx += THREADS) {
-      const int r = idx / DH, d = idx % DH;
-      const int j = kt + r;
-      const bool in = j < Tk;
-      k_s[r * (DH + 1) + d] = in ? to_f32(kb[j * sk.t + d]) : 0.f;
-      v_s[r * DH + d] = in ? to_f32(vb[j * sv.t + d]) : 0.f;
-    }
-    __syncthreads();
-
     // logits for key j = kt + lane against this warp's ROWS rows
     float s[ROWS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) s[i] = 0.f;
-    const float* kr = k_s + lane * (DH + 1);
-    const float* qr = q_s + warp * ROWS * DH;
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();  // the previous chunk or tile is consumed (and q_s is written)
+      if (nc > 1) load_rows<T, DH>(q_s, DH, qb + cc * DH, sq.t, q0, BQ, Tq);
+      if (cc == chunk)
+        load_rows2<T, DH>(k_s, DH + 1, kb + cc * DH, sk.t, v_s, DH, vb + cc * DH, sv.t, kt, BK, Tk);
+      else
+        load_rows<T, DH>(k_s, DH + 1, kb + cc * DH, sk.t, kt, BK, Tk);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float kd = kr[d];
+      for (int d = 0; d < DH; ++d) {
+        const float kd = kr[d];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) s[i] = fmaf(qr[i * DH + d], kd, s[i]);
+        for (int i = 0; i < ROWS; ++i) s[i] = fmaf(qr[i * DH + d], kd, s[i]);
+      }
     }
 
     const int j = kt + lane;
@@ -229,8 +274,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int qi = q0 + warp * ROWS + i;
     if (qi >= Tq) continue;
-    T* orow = o + b * so.b + qi * so.t + h * so.h;
-    if (m_out && lane == 0) {
+    T* orow = o + b * so.b + qi * so.t + h * so.h + chunk * DH;
+    if (m_out && lane == 0 && chunk == 0) {  // every chunk holds the same m, l
       const long long r = (static_cast<long long>(b) * gridDim.y + h) * Tq + qi;
       m_out[r] = m_i[i];
       l_out[r] = l_i[i];
@@ -241,50 +286,57 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* k_lens,
-                   void* o, float* m_out, float* l_out, int B, int Tq, int Tk, int H,
+                   void* o, float* m_out, float* l_out, int B, int Tq, int Tk, int H, int nc,
                    Strides sq, Strides sk, Strides sv, Strides so, int causal, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  auto kern = flash_fwd_kernel<T, DH>;
+  auto kern = flash_fwd_kernel<T, DH, NC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  const dim3 grid((Tq + BQ - 1) / BQ * nc, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      k_lens, static_cast<T*>(o), m_out, l_out, Tq, Tk, sq, sk, sv, so, causal, scale);
+      k_lens, static_cast<T*>(o), m_out, l_out, Tq, Tk, nc, sq, sk, sv, so, causal, scale);
   return cudaGetLastError();
 }
+
+// Above 512 the head dim runs in chunks of WIDE columns (the wrapper pads it
+// to a multiple of WIDE).
+constexpr int WIDE = 256;
 
 template <typename T>
 cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
                         const int* k_lens, void* o, float* m_out, float* l_out, int B,
                         int Tq, int Tk, int H, Strides sq, Strides sk, Strides sv,
                         Strides so, int causal, float scale, cudaStream_t stream) {
+#define MT_LAUNCH(D, NC, nc) \
+  launch<T, D, NC>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, nc, sq, sk, sv, so, causal, scale, \
+                   stream)
   switch (Dh) {
     case 64:
-      return launch<T, 64>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
-                           causal, scale, stream);
+      return MT_LAUNCH(64, 1, 1);
     case 96:
-      return launch<T, 96>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
-                           causal, scale, stream);
+      return MT_LAUNCH(96, 1, 1);
     case 128:
-      return launch<T, 128>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
-                            causal, scale, stream);
+      return MT_LAUNCH(128, 1, 1);
     case 256:
-      return launch<T, 256>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so,
-                            causal, scale, stream);
+      return MT_LAUNCH(256, 1, 1);
+    case 512:
+      return MT_LAUNCH(512, 1, 1);
     default:
+      if (Dh > 512 && Dh % WIDE == 0) return MT_LAUNCH(WIDE, 0, Dh / WIDE);
       return cudaErrorInvalidValue;
   }
+#undef MT_LAUNCH
 }
 
 
-// ---- the tensor-core path: bf16, Dh 64, 128 and 256 ------------------------
+// ---- the tensor-core path: bf16, Dh 64, 96, 128 and 256 --------------------
 namespace tc {
 
 constexpr int BM = 64;        // query rows of a block: one consumer warpgroup
@@ -293,14 +345,17 @@ constexpr int STAGES = 2;     // K/V ring
 constexpr int THREADS = 160;  // warps 0-3 compute, warp 4 loads
 static_assert(BM == BN, "Q and K/V tiles share one column-block size");
 
-// A block accumulates DV of the DH output columns: all of them at Dh 64 and
-// 128; at Dh 256 one half, the other half in a second block (grid z), so O
-// keeps the Dh 128 register plan and the MRTE's 16 (batch, head) pairs give
-// 32 blocks.  Both blocks compute the full S = Q K^T over Dh 256.
+// Tiles are whole 64-column blocks: DP is the head dim rounded up to them
+// (96 -> 128; TMA fills columns 96-127 with zeros).  A block accumulates DV
+// of the DP output columns: all of them up to Dh 128; at Dh 256 one half,
+// the other half in a second block (grid z), so O keeps the Dh 128 register
+// plan and the MRTE's 16 (batch, head) pairs give 32 blocks.  Both blocks
+// compute the full S = Q K^T over Dh 256.
 template <int DH>
 struct Layout {                                // byte offsets in shared memory
-  static constexpr int DV = DH > 128 ? 128 : DH;
-  static constexpr int TILE = BN * DH * 2;     // one 64-row bf16 tile of Q or K (BM == BN)
+  static constexpr int DP = (DH + 63) / 64 * 64;
+  static constexpr int DV = DP > 128 ? 128 : DP;
+  static constexpr int TILE = BN * DP * 2;     // one 64-row bf16 tile of Q or K (BM == BN)
   static constexpr int VTILE = BN * DV * 2;    // the block's columns of a V tile
   static constexpr int Q = 0;
   static constexpr int RING = TILE;            // stage s: K at RING + s STAGE, V after it
@@ -358,9 +413,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
                     float* __restrict__ l_out, int Tq, int Tk, int H, Strides so, int causal,
                     float scale) {
   using L = Layout<DH>;
-  constexpr int NB = DH / 64;      // 128-byte column blocks of a Q or K tile
+  constexpr int NB = L::DP / 64;   // 128-byte column blocks of a Q or K tile
   constexpr int NV = L::DV / 64;   // ... of this block's V columns and of O
-  constexpr int KS = DH / 16;      // k16 steps of Q K^T
+  constexpr int KS = DH / 16;      // k16 steps of Q K^T: the zero columns past DH are left out
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BARS);
@@ -378,7 +433,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   }
   const int ntiles = (kend + BN - 1) / BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col0 = blockIdx.z * L::DV;  // this block's first V and O column
+  const int col0 = L::DP > L::DV ? blockIdx.z * L::DV : 0;  // this block's first V and O column
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -500,8 +555,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
     for (int nb = 0; nb < NV; ++nb)
 #pragma unroll
       for (int c = 0; c < 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) =
-            __floats2bfloat162_rn(acc[nb][4 * c + 2 * r] * inv, acc[nb][4 * c + 2 * r + 1] * inv);
+        if (DH % 64 == 0 || col0 + nb * 64 + 8 * c < DH)  // the zero columns past DH are not stored
+          *reinterpret_cast<__nv_bfloat162*>(row + nb * 64 + 8 * c + c0) =
+              __floats2bfloat162_rn(acc[nb][4 * c + 2 * r] * inv, acc[nb][4 * c + 2 * r + 1] * inv);
   }
 }
 
@@ -518,7 +574,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
   constexpr int smem = Layout<DH>::BYTES;
   e = sm90::allow_smem<flash_fwd_tc_kernel<DH>>(smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (Tq + BM - 1) / BM, DH / Layout<DH>::DV);
+  const dim3 grid(B * H, (Tq + BM - 1) / BM, Layout<DH>::DP / Layout<DH>::DV);
   flash_fwd_tc_kernel<DH><<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, k_lens, static_cast<__nv_bfloat16*>(o), m_out, l_out, Tq, Tk, H, so, causal, scale);
   return cudaGetLastError();
@@ -529,11 +585,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
 
 // q (B, Tq, H, Dh), k and v (B, Tk, H, Dh), o (B, Tq, H, Dh): element strides
 // over (b, t, h), unit stride over Dh.  k_lens is (B,) int32 or null (all
-// keys valid).  is_bf16 selects __nv_bfloat16 over float for all four: 1
-// takes the tensor-core path at Dh 64, 128 and 256 (bf16 tensors with 16-byte
-// aligned bases and strides); 2 takes the SIMT path, to compare the two, and
-// at Dh 96.  scale is the softmax scale (the caller's true Dh^-0.5).  m_out and l_out are (B, H,
-// Tq) fp32 for the row max and sum, or both null.
+// keys valid).  Dh is 64, 96, 128, 256, 512 or a multiple of 256 above.
+// is_bf16 selects __nv_bfloat16 over float for all four: 1 takes the
+// tensor-core path at Dh 64, 96, 128 and 256 (bf16 tensors with 16-byte
+// aligned bases and strides) and the SIMT path above; 2 takes the SIMT path,
+// to compare the two.  scale is the softmax scale (the caller's true
+// Dh^-0.5).  m_out and l_out are (B, H, Tq) fp32 for the row max and sum, or
+// both null.
 extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                  const int* k_lens, void* o, float* m_out, float* l_out,
                                  int B, int Tq, int Tk, int H, int Dh, long long sq_b, long long sq_t,
@@ -548,6 +606,9 @@ extern "C" int mt_flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaError_t e;
   if (is_bf16 == 1 && Dh == 64)
     e = tc::launch<64>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,
+                       scale, st);
+  else if (is_bf16 == 1 && Dh == 96)
+    e = tc::launch<96>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,
                        scale, st);
   else if (is_bf16 == 1 && Dh == 128)
     e = tc::launch<128>(q, k, v, k_lens, o, m_out, l_out, B, Tq, Tk, H, sq, sk, sv, so, causal,

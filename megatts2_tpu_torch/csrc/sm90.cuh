@@ -201,11 +201,26 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The driver's tensor-map encode needs a context current on the calling
+// thread, which a thread gets from its first runtime call that needs one.  A
+// thread that has made none (PyTorch's autograd worker, when the caching
+// allocator served every tensor of its backward) binds the primary context
+// here, once: without it the encode fails with CUDA_ERROR_INVALID_CONTEXT.
+inline cudaError_t bind_context() {
+  static thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  const cudaError_t e = cudaFree(nullptr);  // a no-op that makes the context current
+  bound = e == cudaSuccess;
+  return e;
+}
+
 // Tensor map of a bf16 (B, T, H, Dh) tensor with element strides (sb, st, sh)
 // and unit stride over Dh, for boxes of `rows` consecutive t by 64 of Dh at
 // one (b, h), 128-byte swizzled.  Dimensions innermost first: (Dh, H, T, B).
-// A stride of a dimension of extent 1 is never used and is replaced.  Fails
-// with cudaErrorMisalignedAddress unless the base and the used strides are
+// A Dh that is no multiple of 64 (96) leaves the last box partly past the
+// tensor: TMA fills those columns with zeros.  A stride of a dimension of
+// extent 1 is never used and is replaced.  Fails with
+// cudaErrorMisalignedAddress unless the base and the used strides are
 // multiples of 16 bytes: ops/attention.py then copies such a view and calls
 // again.
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B, int T, int H, int Dh,
@@ -217,6 +232,8 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B, int 
     return cudaErrorMisalignedAddress;
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
+  const cudaError_t e = bind_context();
+  if (e != cudaSuccess) return e;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(bh), static_cast<cuuint64_t>(bt),

@@ -15,12 +15,12 @@ the output is in q's dtype.
   with its roundings of P and ds to q's dtype.
 * :func:`flash_attention_cuda` / :func:`flash_attention_bwd_cuda` — kernel
   B (``csrc/flash_attn_fwd.cu``) and kernel C (``csrc/flash_attn_bwd.cu``).
-  bf16 takes their tensor-core path (``wgmma`` and TMA loads): the
-  forward at head dims 64, 128 and 256 (:func:`fwd_uses_tensor_cores`),
-  the backward at 64 and 128 (:func:`bwd_uses_tensor_cores`); fp32, bf16
-  at head dim 96 and the backward at 256, their SIMT path.  Any other head
-  dim from 1 to 256 runs zero-padded to the next instance
-  (:func:`instance_head_dim`, :func:`pad_head_dim`) at its own scale.  The tensor-core path's forward
+  bf16 at head dims 64, 96, 128 and 256 takes their tensor-core path
+  (``wgmma`` and TMA loads; :func:`uses_tensor_cores`); fp32, and bf16
+  above 256, their SIMT path.  Any other head dim runs zero-padded to the
+  next instance (:func:`instance_head_dim`, :func:`pad_head_dim`) at its own
+  scale: up to 512 the next of :data:`HEAD_DIMS`, above it the next
+  multiple of 256, which the SIMT kernels run in chunks of 256 columns.  The tensor-core path's forward
   splits P into bf16 hi + lo parts for P V (the row sum stays fp32).  TMA
   reads a tensor only from a 16-byte-aligned base with 16-byte strides
   (:func:`tma_aligned`).  The C launcher checks that rule before it
@@ -41,26 +41,24 @@ import torch
 
 from .masks import NEG_INF
 
-HEAD_DIMS = (64, 96, 128, 256)  # the kernels' template instances
-MAX_HEAD_DIM = HEAD_DIMS[-1]
-# bf16 head dims of kernel C's tensor-core path: 64 and 128.  At head dim 256
-# (the MRTE's phone encoder, trained by the GAN step with use_flash) kernel C
-# runs its SIMT path, a small share of that step (PERF.md §6); kernel B's
-# forward has the tensor-core path at every head dim
-TC_BWD_HEAD_DIMS = (64, 128)
-# kernel B's tensor-core path: head dim 96 (the ADM at tc_emb_dim 512) has
-# the SIMT instance only
-TC_FWD_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256, 512)  # the kernels' template instances
+WIDE_CHUNK = 256  # above 512 the SIMT kernels loop over chunks of this many columns
+# bf16 head dims of kernels B's and C's tensor-core path: the PLM (64), the
+# ADM at tc_emb_dim 512 (96; the tiles are 128 wide, TMA filling columns
+# 96-127 with zeros) and the MRTE's phone encoder (256: two blocks split the
+# output columns)
+TC_HEAD_DIMS = (64, 96, 128, 256)
 
 
 def instance_head_dim(head_dim: int) -> int:
     """The kernel instance a head dim runs on: the smallest of
-    :data:`HEAD_DIMS` that holds it.  Any other head dim up to 256 is
-    zero-padded to it (:func:`pad_head_dim`); above 256 there is none."""
+    :data:`HEAD_DIMS` that holds it, above 512 the next multiple of
+    :data:`WIDE_CHUNK`.  Any other head dim is zero-padded to it
+    (:func:`pad_head_dim`)."""
     for d in HEAD_DIMS:
         if head_dim <= d:
             return d
-    raise ValueError(f"head dim {head_dim} above {MAX_HEAD_DIM}: no kernel instance holds it")
+    return -(-head_dim // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -72,17 +70,11 @@ def pad_head_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t if pad == 0 else torch.nn.functional.pad(t, (0, pad))
 
 
-def fwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether kernel B takes its tensor-core path (``wgmma``, TMA) for this
-    dtype and head dim: bf16 at every head dim it has; otherwise its SIMT
-    path runs."""
-    return dtype == torch.bfloat16 and head_dim in TC_FWD_HEAD_DIMS
-
-
-def bwd_uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether kernel C takes its tensor-core path for this dtype and head
-    dim; otherwise its SIMT path runs."""
-    return dtype == torch.bfloat16 and head_dim in TC_BWD_HEAD_DIMS
+def uses_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether kernels B and C take their tensor-core path (``wgmma``, TMA)
+    for this dtype and instance head dim: bf16 at :data:`TC_HEAD_DIMS`;
+    otherwise their SIMT path runs."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 def tma_aligned(data_ptr: int, element_size: int, shape, strides) -> bool:
@@ -203,8 +195,8 @@ def _check_qkv(q, k, v, k_lens, what: str) -> None:
     B, Tq, H, Dh = q.shape
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, Dh):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    if not 1 <= Dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {Dh} outside 1..{MAX_HEAD_DIM}: no kernel instance holds it")
+    if Dh < 1:
+        raise ValueError("empty head dim")
     if Tq == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -249,7 +241,7 @@ def flash_attention_cuda(
     B, Tq, H, dh = q.shape
     Dh = instance_head_dim(dh)
     q, k, v = (pad_head_dim(t, Dh) for t in (q, k, v))
-    tc = fwd_uses_tensor_cores(q.dtype, Dh) and not simt
+    tc = uses_tensor_cores(q.dtype, Dh) and not simt
     lib = load_library()
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
     m = l = None
@@ -317,7 +309,7 @@ def flash_attention_bwd_cuda(
         g = g.contiguous()
     Dh = instance_head_dim(dh)
     q, k, v, g = (pad_head_dim(t, Dh) for t in (q, k, v, g))
-    tc = bwd_uses_tensor_cores(q.dtype, Dh) and not simt
+    tc = uses_tensor_cores(q.dtype, Dh) and not simt
     from ..csrc.build import check, load_library
 
     lib = load_library()

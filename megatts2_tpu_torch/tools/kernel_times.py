@@ -2,10 +2,10 @@
 
     python megatts2_tpu_torch/tools/kernel_times.py [--root DIR]
 
-For kernels A and B at the synthesis path's shapes, and kernel A's
-backward at the vocoder trainer's (:func:`cases`, the inputs
-``chip_smoke.py`` times too), prints one JSON line each with three times
-per call, on the card:
+For kernels A and B at the synthesis path's shapes, kernel A's backward
+at the vocoder trainer's, and kernels B (with its statistics) and C at the
+PLM trainer's (:func:`cases`, the inputs ``chip_smoke.py`` times too),
+prints one JSON line each with three times per call, on the card:
 
 * ``event_ms`` — CUDA events around 20 back-to-back warm calls;
 * ``device_us`` — the kernel's own span in a ``torch.profiler`` trace;
@@ -37,6 +37,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]  # the checkout that holds this file
 HOST_ITERS, HOST_ROUNDS = 100, 21
 EVENT_ITERS = 20
+PLM_LENS = (1024, 1024, 960, 800, 700, 512, 384, 100)  # the PLM batch's mixed lengths, as chip_smoke.py's
 
 
 def trace_kernels(fn: Callable, n: int = 2) -> dict:
@@ -109,11 +110,16 @@ def inputs(dev: torch.device, seed: int = 0) -> dict:
     self-attention (8, 64, 2, 256) bf16 with mixed key lengths, the batched
     prompt front end (8, 131000) and one ~4 s prompt (64001,), fp32; and
     kernel A's backward on the vocoder trainer's crops, (8, 16384) fp32
-    with a gradient for each of its (8, 65, 80) mels."""
+    with a gradient for each of its (8, 65, 80) mels; the PLM trainer's
+    causal self-attention (8, 1024, 16, 64) bf16 with mixed lengths, q, k,
+    v and the output's gradient."""
     gen = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(8, 64, 2, 256, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
     lens = torch.randint(16, 65, (8,), generator=gen, dtype=torch.int32).to(dev)
-    return {"mrte": (q, k, v, lens), "mel": (torch.randn(8, 131000, generator=gen) * 0.1).to(dev),
+    plm = [torch.randn(8, 1024, 16, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(4)]
+    plm_lens = torch.tensor(PLM_LENS, dtype=torch.int32, device=dev)
+    return {"mrte": (q, k, v, lens), "plm": (*plm, plm_lens),
+            "mel": (torch.randn(8, 131000, generator=gen) * 0.1).to(dev),
             "mel_prompt": (torch.randn(64001, generator=gen) * 0.1).to(dev),
             "mel_bwd": ((torch.randn(8, 16384, generator=gen) * 0.1).to(dev),
                         torch.randn(8, 65, 80, generator=gen).to(dev))}
@@ -126,6 +132,8 @@ def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
     from megatts2_tpu_torch.ops import mel
 
     q, k, v, lens = x["mrte"]
+    pq, pk, pv, pg, plens = x["plm"]
+    _, m, l = att.flash_attention_cuda(pq, pk, pv, plens, True, return_stats=True)
 
     class Counter:  # _tma_ready's wrapper argument; never counts here
         layout_copies = 0
@@ -137,6 +145,10 @@ def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
         "mel": (lambda: mel.mel_spectrogram_cuda(x["mel"]), "mel"),
         "mel_prompt": (lambda: mel.mel_spectrogram_cuda(x["mel_prompt"]), "mel"),
         "mel_bwd": (lambda: mel.mel_spectrogram_bwd_cuda(*x["mel_bwd"]), "mel_bwd"),
+        "flash_plm": (lambda: att.flash_attention_cuda(pq, pk, pv, plens, True, return_stats=True),
+                      "flash"),
+        "flash_bwd_plm": (lambda: att.flash_attention_bwd_cuda(pq, pk, pv, plens, True, pg, m, l),
+                          "flash_"),
     }
 
 

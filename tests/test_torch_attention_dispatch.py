@@ -9,26 +9,29 @@ from megatts2_tpu_torch.ops import attention as att
 
 
 @pytest.mark.parametrize("dtype,head_dim,tc", [
-    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True), (torch.bfloat16, 256, True),
-    (torch.float32, 64, False), (torch.float32, 128, False), (torch.float32, 256, False),
-    (torch.float16, 64, False), (torch.bfloat16, 96, False),
+    (torch.bfloat16, 64, True), (torch.bfloat16, 96, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, True), (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.float32, 256, False), (torch.float16, 64, False), (torch.bfloat16, 512, False),
 ])
 def test_dispatch_table(dtype, head_dim, tc):
-    """Kernel B's forward: bf16 at every head dim on the tensor cores."""
-    assert att.fwd_uses_tensor_cores(dtype, head_dim) is tc
+    """Kernel B's forward: bf16 at every instance up to 256 on the tensor
+    cores (96 on 128-wide tiles); fp32, and bf16 above 256, on SIMT."""
+    assert att.uses_tensor_cores(dtype, head_dim) is tc
 
 
 @pytest.mark.parametrize("dtype,head_dim,tc", [
-    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True), (torch.bfloat16, 256, False),
-    (torch.float32, 64, False), (torch.float32, 256, False), (torch.bfloat16, 96, False),
+    (torch.bfloat16, 64, True), (torch.bfloat16, 96, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, True), (torch.float32, 64, False), (torch.float32, 96, False),
+    (torch.float32, 256, False), (torch.bfloat16, 768, False),
 ])
 def test_backward_dispatch_table(dtype, head_dim, tc):
-    """Kernel C: the bf16 head dim 256 backward stays on the SIMT path."""
-    assert att.bwd_uses_tensor_cores(dtype, head_dim) is tc
+    """Kernel C takes the route of kernel B: bf16 96 (the ADM) and 256 (the
+    MRTE) on the tensor cores too; fp32 stays on SIMT."""
+    assert att.uses_tensor_cores(dtype, head_dim) is tc
 
 
 def test_tensor_core_head_dims_are_kernel_instances():
-    assert set(att.TC_BWD_HEAD_DIMS) <= set(att.HEAD_DIMS)
+    assert set(att.TC_HEAD_DIMS) <= set(att.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("ptr,shape,strides,ok", [

@@ -42,15 +42,16 @@ def _lens(B, Tk):
     return torch.tensor(lens[:B], dtype=torch.int32)
 
 
-# (B, Tq, H, Dh[, Tk]): the tensor-core path's edges at Dh 64 (Tq of 1, 32,
-# 300 and 1000 inside 64-row tiles; one query row against 70 keys), Dh 128,
-# and Dh 256, where two blocks split the output columns: the MRTE's (8, 64,
-# 2, 256) and (1, 3, 2, 256), several key tiles, one row against 70 keys;
-# then head dims that are no tensor-core instance: 96 (the ADM at tc_emb_dim
-# 512, the SIMT instance) and 80 and 33, zero-padded to 96 and 64
+# (B, Tq, H, Dh[, Tk]): in bf16 the tensor-core path's edges at Dh 64 (Tq
+# of 1, 32, 300 and 1000 inside 64-row tiles; one query row against 70
+# keys), Dh 128, and Dh 256, where two blocks split the output columns: the
+# MRTE's (8, 64, 2, 256) and (1, 3, 2, 256), several key tiles, one row
+# against 70 keys; Dh 96 (the ADM at tc_emb_dim 512: 128-wide tiles whose
+# columns 96-127 TMA fills with zeros) and 80, zero-padded to 96, on the
+# same path; 33, zero-padded to 64.  fp32 runs every shape on the SIMT path
 FLASH_SHAPES = [(8, 64, 2, 256), (4, 1, 2, 64, 70), (4, 32, 2, 64), (4, 300, 2, 64),
                 (2, 1000, 16, 64), (3, 77, 4, 128), (1, 3, 2, 256), (2, 300, 4, 256),
-                (4, 1, 2, 256, 70), (8, 64, 8, 96), (2, 50, 3, 80), (3, 70, 2, 33)]
+                (4, 1, 2, 256, 70), (8, 64, 8, 96), (3, 150, 2, 96), (2, 50, 3, 80), (3, 70, 2, 33)]
 
 
 def _qkv(shape, n, g, dev, dtype):
@@ -115,9 +116,10 @@ def test_flash_kernels_copy_views_that_tma_cannot_read(cuda):
 
 
 @pytest.mark.parametrize("dtype,head_dim,tc,bwd_tc", [
-    (torch.bfloat16, 64, True, True), (torch.bfloat16, 128, True, True),
-    (torch.bfloat16, 256, True, False), (torch.float32, 64, False, False),
-    (torch.float32, 128, False, False)])
+    (torch.bfloat16, 64, True, True), (torch.bfloat16, 96, True, True),
+    (torch.bfloat16, 128, True, True), (torch.bfloat16, 256, True, True),
+    (torch.bfloat16, 320, False, False), (torch.float32, 64, False, False),
+    (torch.float32, 96, False, False), (torch.float32, 128, False, False)])
 def test_tensor_core_counters_follow_the_dispatch(cuda, dtype, head_dim, tc, bwd_tc):
     g = torch.Generator().manual_seed(8)
     q, k, v, go = (torch.randn(2, 40, 2, head_dim, generator=g).to(cuda, dtype) for _ in range(4))
@@ -134,6 +136,35 @@ def test_tensor_core_counters_follow_the_dispatch(cuda, dtype, head_dim, tc, bwd
                                rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
 
 
+def test_tensor_core_kernels_launch_from_a_fresh_thread(cuda):
+    """The first launch from a thread that has made no CUDA call of its own
+    (as PyTorch's autograd worker may be): the launcher binds the context
+    before it encodes the tensor maps."""
+    import threading
+
+    g = torch.Generator().manual_seed(13)
+    q, k, v, go = (torch.randn(3, 70, 2, 128, generator=g).to(cuda, torch.bfloat16) for _ in range(4))
+    got, errors = [], []
+
+    def run():
+        try:
+            out, m, l = tatt.flash_attention_cuda(q, k, v, None, False, return_stats=True)
+            got.append((out, tatt.flash_attention_bwd_cuda(q, k, v, None, False, go, m, l), m, l))
+            torch.cuda.synchronize()
+        except Exception as e:  # handed to the test's thread
+            errors.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    out, grads, m, l = got[0]
+    torch.testing.assert_close(out.float(), tatt.flash_attention_plain(q, k, v).float(), rtol=0, atol=2e-2)
+    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                          tatt.flash_attention_bwd_plain(q, k, v, None, False, go, m, l)):
+        _close_to_max(a, b, 2e-2, f"fresh thread {name}")
+
+
 def test_flash_kernel_reads_strided_views(cuda):
     """q, k, v as views into one packed (B, T, 3, H, Dh) tensor."""
     g = torch.Generator().manual_seed(1)
@@ -146,9 +177,12 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: no instance holds it
+    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: runs on the SIMT instance at 512
+    out = tatt.flash_attention_cuda(x, x, x)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and not out.any()
     with pytest.raises(ValueError, match="head dim"):
-        tatt.flash_attention_cuda(x, x, x)
+        tatt.flash_attention_cuda(x[..., :0], x[..., :0], x[..., :0])
     y = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         tatt.flash_attention_cuda(y, y.bfloat16(), y)
@@ -168,7 +202,8 @@ def _close_to_max(got, ref, rel, what):
 
 @pytest.mark.parametrize("shape", [(4, 1, 2, 64, 70), (4, 32, 2, 64), (2, 300, 4, 64),
                                    (4, 1000, 2, 64), (3, 77, 4, 128), (2, 40, 2, 256),
-                                   (8, 64, 8, 96), (2, 50, 3, 80), (3, 70, 2, 33)])
+                                   (2, 300, 4, 256), (8, 64, 8, 96), (3, 150, 2, 96),
+                                   (2, 50, 3, 80), (3, 70, 2, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_kernel_matches_plain(cuda, shape, dtype, causal):
@@ -224,8 +259,8 @@ def test_autograd_on_the_card_matches_the_cpu(cuda):
 
 
 def test_autograd_at_head_dim_256_bf16_matches_the_cpu(cuda):
-    """bf16 at head dim 256: the tensor-core forward with the SIMT backward
-    (each launched once) against the plain versions on the CPU; 2e-2 on the
+    """bf16 at head dim 256: the tensor-core forward and backward (each
+    launched once) against the plain versions on the CPU; 2e-2 on the
     output and of each gradient's largest magnitude (bf16 roundings)."""
     g = torch.Generator().manual_seed(9)
     x = [torch.randn(3, 70, 2, 256, generator=g).bfloat16() for _ in range(4)]
@@ -241,7 +276,7 @@ def test_autograd_at_head_dim_256_bf16_matches_the_cpu(cuda):
             torch.cuda.synchronize()
             assert tatt.flash_attention_cuda.tc_launches == f0 + 1
             assert tatt.flash_attention_bwd_cuda.launches == b0 + 1
-            assert tatt.flash_attention_bwd_cuda.tc_launches == bt0
+            assert tatt.flash_attention_bwd_cuda.tc_launches == bt0 + 1
         out[str(dev)] = y.detach().float().cpu()
         grads[str(dev)] = [t.grad.cpu() for t in leaves]
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=2e-2)
@@ -252,27 +287,56 @@ def test_autograd_at_head_dim_256_bf16_matches_the_cpu(cuda):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_kernel_at_the_mrte_shape_bf16(cuda, causal):
     """The GAN step's phone encoder under ``use_flash``: (8, 64, 2, 256)
-    bf16 with edge lengths (0, 1, partial tiles), on kernel C's SIMT path
-    (its tensor-core path stops at head dim 128)."""
+    bf16 with edge lengths (0, 1, partial tiles), on kernel C's tensor-core
+    path (two blocks split the output columns), and on its SIMT path when
+    asked."""
     g = torch.Generator().manual_seed(10)
     q, k, v, go = _qkv((8, 64, 2, 256), 4, g, cuda, torch.bfloat16)
     lens = torch.tensor([64, 0, 33, 63, 1, 17, 64, 48], dtype=torch.int32, device=cuda)
     _, m, l = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
-    before, tc = tatt.flash_attention_bwd_cuda.launches, tatt.flash_attention_bwd_cuda.tc_launches
+    want = tatt.flash_attention_bwd_plain(q, k, v, lens, causal, go, m, l)
+    for simt in (False, True):
+        before, tc = tatt.flash_attention_bwd_cuda.launches, tatt.flash_attention_bwd_cuda.tc_launches
+        got = tatt.flash_attention_bwd_cuda(q, k, v, lens, causal, go, m, l, simt=simt)
+        torch.cuda.synchronize()
+        assert tatt.flash_attention_bwd_cuda.launches == before + 1
+        assert tatt.flash_attention_bwd_cuda.tc_launches == tc + (not simt)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _close_to_max(a, b, BWD_RTOL[torch.bfloat16], f"MRTE {name} causal={causal} simt={simt}")
+
+
+@pytest.mark.parametrize("head_dim", [257, 320, 512, 640])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_above_head_dim_256(cuda, head_dim, dtype, causal):
+    """Head dims above 256 on the SIMT path: up to 512 its instance at 512,
+    above it chunks of 256 columns (640 zero-padded to 768); forward, row
+    statistics and backward against the plain versions."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v, go = _qkv((3, 70, 2, head_dim), 4, g, cuda, dtype)
+    lens = _lens(3, 70).to(cuda)
+    tc = tatt.flash_attention_cuda.tc_launches, tatt.flash_attention_bwd_cuda.tc_launches
+    out, m, l = tatt.flash_attention_cuda(q, k, v, lens, causal, return_stats=True)
+    ref, ref_m, ref_l = tatt.flash_attention_plain(q, k, v, lens, causal, return_stats=True)
     got = tatt.flash_attention_bwd_cuda(q, k, v, lens, causal, go, m, l)
     torch.cuda.synchronize()
-    assert tatt.flash_attention_bwd_cuda.launches == before + 1
-    assert tatt.flash_attention_bwd_cuda.tc_launches == tc
+    assert (tatt.flash_attention_cuda.tc_launches, tatt.flash_attention_bwd_cuda.tc_launches) == tc
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=1e-4 if dtype == torch.float32 else 2e-2)
+    torch.testing.assert_close(m, ref_m, rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=0)
     want = tatt.flash_attention_bwd_plain(q, k, v, lens, causal, go, m, l)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        _close_to_max(a, b, BWD_RTOL[torch.bfloat16], f"MRTE {name} causal={causal}")
+        assert a.shape == b.shape
+        _close_to_max(a, b, BWD_RTOL[dtype], f"{name} Dh {head_dim} {dtype} causal={causal}")
 
 
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: no instance holds it
+    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: runs on the SIMT instance at 512
     st = torch.ones(1, 2, 8, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        tatt.flash_attention_bwd_cuda(x, x, x, None, False, x, st, st)
+    grads = tatt.flash_attention_bwd_cuda(x, x, x, None, False, x, st, st)
+    torch.cuda.synchronize()
+    assert all(t.shape == x.shape and not t.any() for t in grads)
     y = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="m must be"):
         tatt.flash_attention_bwd_cuda(y, y, y, None, False, y, st.double(), st)

@@ -1,8 +1,11 @@
-"""Kernels B and C at every head dim from 1 to 256: the wrappers zero-pad a
-head dim that is no kernel instance to the next one and pass the true head
-dim's softmax scale.  Here the same plan runs through the plain versions on
-the CPU and is held against plain attention at the true head dim; the
-kernels themselves are held on the card (``tests/test_torch_cuda.py``)."""
+"""Kernels B and C at every head dim: the wrappers zero-pad a head dim that
+is no kernel instance to the next one (above 512, to the next multiple of
+256, which the SIMT kernels run in chunks) and pass the true head dim's
+softmax scale.  Here the same plan runs through the plain versions on the
+CPU and is held against plain attention at the true head dim, and the
+plain versions at head dim 320 against JAX's Pallas kernel; the kernels
+themselves are held on the card (``tests/test_torch_cuda.py``)."""
+import numpy as np
 import pytest
 import torch
 
@@ -15,9 +18,49 @@ def test_instance_head_dim(dh, inst):
     assert att.instance_head_dim(dh) == inst
 
 
-def test_above_256_raises():
-    with pytest.raises(ValueError, match="head dim 320"):
-        att.instance_head_dim(320)
+@pytest.mark.parametrize("dh,inst", [(257, 512), (320, 512), (512, 512), (513, 768),
+                                     (640, 768)])
+def test_instance_head_dim_above_256(dh, inst):
+    """Up to 512 the SIMT instance at 512; above it the next multiple of
+    256, run as chunks of 256 columns."""
+    assert att.instance_head_dim(dh) == inst
+    assert inst <= 512 or inst % att.WIDE_CHUNK == 0
+    assert not att.uses_tensor_cores(torch.bfloat16, inst)
+
+
+def test_plain_versions_at_head_dim_320_match_jax():
+    """Head dim 320, fp32: the plain forward and backward against JAX's
+    ``flash_attention`` in Pallas interpret mode and ``flash_attention_vjp``
+    (its custom backward, with the Pallas forward) under ``FLASH_ON_CPU``.
+    1e-5: the same fp32 products summed in other orders."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from megatts2_tpu.nn import transformer as jtr
+    from megatts2_tpu.ops.attention_pallas import flash_attention, flash_attention_vjp
+
+    rng = np.random.RandomState(0)
+    q, k, v, go = (rng.randn(2, 20, 2, 320).astype(np.float32) for _ in range(4))
+    lens = np.array([20, 7], np.int32)
+    for causal in (False, True):
+        want = np.asarray(flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(lens), causal, interpret=True))
+        jtr.FLASH_ON_CPU = True
+        try:
+            with pltpu.force_tpu_interpret_mode():
+                _, vjp = jax.vjp(lambda a, b, c: flash_attention_vjp(a, b, c, jnp.asarray(lens), causal),
+                                 jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+                want_grads = [np.asarray(x) for x in vjp(jnp.asarray(go))]
+        finally:
+            jtr.FLASH_ON_CPU = False
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        out = att.flash_attention(tq, tk, tv, torch.from_numpy(lens), causal)
+        out.backward(torch.from_numpy(go))
+        np.testing.assert_allclose(out.detach().numpy(), want, rtol=0, atol=1e-5)
+        for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want_grads):
+            np.testing.assert_allclose(t.grad.numpy(), w, rtol=0, atol=1e-5,
+                                       err_msg=f"{name} causal={causal}")
 
 
 def _inputs(dh, dtype, seed=0):
