@@ -156,11 +156,12 @@ Added for the training pipeline (run last):
    the MRTE (4 steps: one validation, one artifact, one checkpoint; B and
    C must launch), then its resume to 6 steps from the checkpoint
    directory; stage 2 from that checkpoint (kernel B in fp32); ``cli fit``
-   of plm (B and C), adm (14 steps, ``use_flash`` and bf16: B and C only on
-   their tensor-core path; ``--trace_dir``: the trace must be written) and
-   vocoder (A forward and backward), each the shipped config with only
-   max_steps, val_check_interval, log_every_n_steps and ds_path overridden
-   (and the ADM's ``use_flash`` and ``train_dtype``).  Every counter is set to 0 before each step of the
+   of plm (B and C), adm (14 steps, ``--trace_dir``: the trace must be
+   written) and vocoder (A forward and backward), each the shipped config
+   with only max_steps, val_check_interval, log_every_n_steps and ds_path
+   overridden; then a short fit of the ADM on a copy with ``use_flash`` and
+   ``train_dtype: bfloat16`` (4 steps: B and C only on their tensor-core
+   path).  Every counter is set to 0 before each step of the
    pipeline and read after it; each step's line gives its wall, steps,
    median step ms and loader wait (``run_training``'s ``loop/`` row), peak
    memory, checkpoint MiB and launches, beside the card's name and power
@@ -383,18 +384,29 @@ def sass_hgmma() -> dict:
     return counts
 
 
-def ptxas_report() -> dict:
-    """ptxas's register and spill report of each tensor-core kernel, from
-    the build's log."""
+# a SIMT attention kernel's mangled name: <T, DH, NC> (<T, DH> before the chunk loop)
+SIMT_KERNEL = re.compile(r"\d(flash_(?:fwd|bwd_dq|bwd_dkdv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?")
+
+
+def ptxas_report(log: Path = None) -> tuple:
+    """ptxas's register and spill report of each tensor-core kernel and of
+    each SIMT attention kernel instance (<dtype, DH, NC>), from a build's
+    log (by default the built library's)."""
     from megatts2_tpu_torch.csrc import build
 
-    lines = (build.library_path().parent / "build.log").read_text().splitlines()
-    out = {}
+    lines = (log or build.library_path().parent / "build.log").read_text().splitlines()
+    tc, simt = {}, {}
     for i, line in enumerate(lines):
-        m = TC_KERNEL.search(line)
-        if "Function properties for" in line and m:
-            out[f"{m.group(1)}<{m.group(2)}>"] = f"{lines[i + 1].strip()}; {lines[i + 2].strip()}"
-    return out
+        if "Function properties for" not in line:
+            continue
+        rep = f"{lines[i + 1].strip()}; {lines[i + 2].strip()}"
+        if m := TC_KERNEL.search(line):
+            tc[f"{m.group(1)}<{m.group(2)}>"] = rep
+        elif m := SIMT_KERNEL.search(line):
+            dtype = "fp32" if m.group(2) == "f" else "bf16"
+            nc = "" if m.group(4) is None else f",{m.group(4)}"
+            simt[f"{m.group(1)}<{dtype},{m.group(3)}{nc}>"] = rep
+    return tc, simt
 
 
 def phase_kernels(dev: torch.device, card: str) -> dict:
@@ -675,14 +687,16 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
               f"{lib[b_key]:.4f} ms [{card}]")
     print(f"trace flash_attention_bwd (8,1024,16,64) bf16 causal, device ms a call by kernel "
           f"(torch.profiler): {passes or 'not measured'} [{card}]")
-    hgmma, regs = sass_hgmma(), ptxas_report()
+    hgmma, (regs, simt_regs) = sass_hgmma(), ptxas_report()
     print(f"sass HGMMA instructions per tensor-core kernel: {hgmma} [{card}]")
-    for name, rep in regs.items():
+    for name, rep in {**regs, **simt_regs}.items():
         print(f"ptxas {name}: {rep}")
     # B at Dh 64, 96, 128, 256; C's two passes at the same four
     check(len(hgmma) == 12 and all(n > 0 for n in hgmma.values()), f"HGMMA counts {hgmma}")
     check(len(regs) == 12 and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs.values()),
           f"ptxas report {regs}")
+    # B and C's two passes, fp32 and bf16, at 64, 96, 128, 256 and the chunked 256
+    check(len(simt_regs) == 30, f"ptxas report of the SIMT kernels {sorted(simt_regs)}")
 
     # kernel D: both outputs exact, at a small shape and the tool's
     err["pump"] = 0
@@ -756,7 +770,7 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
 # kernels B and C at the ADM's head dim: 96 (tc_emb_dim 512; 128-wide tiles on
 # the tensor cores, columns 96-127 zero) and 80 (zero-padded to 96)
 HEAD_DIM_SHAPES = ((8, 64, 8, 96), (2, 50, 3, 80))
-WIDE_HEAD_DIMS = (257, 320, 512, 640)  # the SIMT instance at 512, then chunks of 256 (640 -> 768)
+WIDE_HEAD_DIMS = (257, 320, 512, 640)  # SIMT chunks of 256: 257-512 as two, 640 as three (-> 768)
 PREFILL_P = 2048  # the continuous engine's prompt budget at --prompt_tokens 2048
 
 
@@ -2019,11 +2033,10 @@ PIPE_FITS = (("gan", "configs/config_gan.yaml", 4, 4), ("plm", "configs/config_p
 GAN_RESUME = 6
 
 
-# the config block that gets use_flash: true in the pipeline's fits, and the
-# ADM's train dtype there: its shipped float32 would send B and C to their
-# SIMT route; the fit holds the ADM's bf16 tensor-core route
-PIPE_FLASH = {"gan": "mrte", "adm": "adm"}
-PIPE_DTYPE = {"adm": "bfloat16"}
+# the ADM's extra fit after the shipped ones: use_flash under its adm block and
+# train_dtype bfloat16 (the shipped float32 sends B and C to their SIMT route),
+# to hold the ADM's bf16 tensor-core route through the CLI
+ADM_FLASH_STEPS = 4
 
 
 def _pipeline_config(shipped: str, out: str, ds: str, steps: int, val: int,
@@ -2212,7 +2225,8 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     card: a synthetic corpus, ``prepare_ds`` stages 0 and 1, ``cli fit`` of
     the gan stage (``use_flash``) and its resume, stage 2 from its
     checkpoint, then ``cli fit`` of plm, adm (traced) and vocoder, each on
-    the shipped config at full width.  Every launch signature of kernels A,
+    the shipped config at full width, and a short fit of the ADM with
+    ``use_flash`` in bf16.  Every launch signature of kernels A,
     B and C on that path is recorded and, after the path, held against the
     plain version (its worst error folded into ``err``); stage 1's stored
     features are held against the plain mel.  Returns each step's
@@ -2250,7 +2264,7 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     fit_cfgs = {}
     for stage, shipped, steps, val in PIPE_FITS:
         fit_cfgs[stage] = _pipeline_config(shipped, os.path.join(base, f"{stage}.yaml"), ds, steps,
-                                           val, PIPE_FLASH.get(stage), PIPE_DTYPE.get(stage))
+                                           val, use_flash="mrte" if stage == "gan" else None)
     ck = {stage: os.path.join(base, f"ck_{stage}") for stage, *_ in PIPE_FITS}
 
     def fit(stage, cfg, *extra):
@@ -2302,7 +2316,7 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     for stage, _, steps, _ in PIPE_FITS[1:]:
         extra = ["--trace_dir", trace] if stage == "adm" else []
         st, launches[f"fit {stage}"], loops[stage] = _pipeline_step(
-            f"fit {stage}" + (" (use_flash, bf16, traced)" if extra else ""), card,
+            f"fit {stage}" + (" (traced)" if extra else ""), card,
             fit(stage, fit_cfgs[stage], *extra), (logs, stage), ck[stage])
         train = _metric_rows(logs, stage, "train/")
         val = _metric_rows(logs, stage, "val/")
@@ -2314,11 +2328,25 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
         del st
         shutil.rmtree(ck[stage])
         torch.cuda.empty_cache()
+    label = "fit adm (use_flash, bf16)"
+    cfg = _pipeline_config("configs/config_adm.yaml", os.path.join(base, "adm_flash.yaml"), ds,
+                           ADM_FLASH_STEPS, ADM_FLASH_STEPS, use_flash="adm", train_dtype="bfloat16")
+    logs_flash, ck["adm_flash"] = os.path.join(base, "logs_adm_flash"), os.path.join(base, "ck_adm_flash")
+    st, launches[label], _ = _pipeline_step(
+        label, card, lambda: cli.main(["fit", "-c", cfg, "--log_dir", logs_flash, "--ckpt_dir",
+                                       ck["adm_flash"]]), (logs_flash, "adm"), ck["adm_flash"])
+    train = _metric_rows(logs_flash, "adm", "train/")
+    check(st.step == ADM_FLASH_STEPS and len(train) == ADM_FLASH_STEPS
+          and all(np.isfinite(v) for r in train for v in r.values()), f"{label}: step {st.step}, {train[-1:]}")
+    print(f"pipeline {label}: train/loss {[round(r['train/loss'], 4) for r in train]}")
+    del st
+    shutil.rmtree(ck["adm_flash"])
+    torch.cuda.empty_cache()
     n = launches
     check(n["fit plm"]["B_tc"] > 0 and n["fit plm"]["C"] > 0, f"fit plm: B or C not launched {n['fit plm']}")
-    adm = n["fit adm"]
+    adm = n[label]
     check(adm["B"] > 0 and adm["C"] > 0 and adm["B_tc"] == adm["B"] and adm["C_tc"] == adm["C"],
-          f"fit adm (use_flash, bf16): B and C must launch, only on the tensor cores: {adm}")
+          f"{label}: B and C must launch, only on the tensor cores: {adm}")
     check(n["fit vocoder"]["A"] > 0 and n["fit vocoder"]["A_bwd"] > 0,
           f"fit vocoder: kernel A not launched {n['fit vocoder']}")
     traces = os.listdir(trace)

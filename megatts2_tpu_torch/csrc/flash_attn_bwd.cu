@@ -67,9 +67,9 @@
 //
 // 2. fp32 (all head dims) and bf16 above Dh 256 — the SIMT path, the first
 //    version (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel; instances at Dh
-//    64, 96, 128, 256 and 512, the wrapper zero-padding other head dims,
-//    above 512 to a multiple of 256, and passing the true Dh's scale; above
-//    512 one instance loops over chunks of 256 columns, as kernel B's
+//    64, 96, 128 and 256, the wrapper zero-padding other head dims, above
+//    256 to a multiple of 256, and passing the true Dh's scale; above 256
+//    one instance loops over chunks of 256 columns, as kernel B's
 //    does): FMA issue and the shared-memory reads feeding it bound it.
 //    fp32 keeps full-fp32 products (TF32 wgmma would not).  The design:
 //    * Pass 1, one block per (b, h, 16 query rows), 4 warps of 4 rows, lane j
@@ -166,7 +166,7 @@ constexpr size_t smem_bytes() {  // both passes: two [BR][DH] and two [BT][DH + 
 }
 
 // Both passes take the head dim as nc chunks of DH columns: NC = 1 (one
-// chunk, fixed at compile time) for the instances up to 512; NC = 0 above,
+// chunk, fixed at compile time) for the instances up to 256; NC = 0 above,
 // with nc = Dh / 256 chunks given at run time.  Block x = (tile) * nc +
 // chunk writes output columns [chunk DH, (chunk + 1) DH).  With one chunk
 // the block's own rows are loaded once; with more, the dot products sum over
@@ -463,7 +463,7 @@ cudaError_t launch(const Args& a, int nc, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Above 512 the head dim runs in chunks of WIDE columns (the wrapper pads it
+// Above 256 the head dim runs in chunks of WIDE columns (the wrapper pads it
 // to a multiple of WIDE).
 constexpr int WIDE = 256;
 
@@ -478,10 +478,8 @@ cudaError_t dispatch_dh(int Dh, const Args& a, cudaStream_t stream) {
       return launch<T, 128, 1>(a, 1, stream);
     case 256:
       return launch<T, 256, 1>(a, 1, stream);
-    case 512:
-      return launch<T, 512, 1>(a, 1, stream);
     default:
-      if (Dh > 512 && Dh % WIDE == 0) return launch<T, WIDE, 0>(a, Dh / WIDE, stream);
+      if (Dh > WIDE && Dh % WIDE == 0) return launch<T, WIDE, 0>(a, Dh / WIDE, stream);
       return cudaErrorInvalidValue;
   }
 }
@@ -933,7 +931,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // dk, dv of the same shapes; element strides over (b, t, h), unit stride over
 // Dh.  m, l (the forward's row max and row sum) and dsum (scratch, written
 // here) are contiguous (B, H, Tq) fp32.  k_lens is (B,) int32 or null (all
-// keys valid).  Dh is 64, 96, 128, 256, 512 or a multiple of 256 above.
+// keys valid).  Dh is 64, 96, 128 or a multiple of 256.
 // is_bf16 selects __nv_bfloat16 over float for the seven tensors: 1 takes
 // the tensor-core path at Dh 64, 96, 128 and 256 (bf16 tensors with 16-byte
 // aligned bases and strides, dq/dk/dv contiguous) and the SIMT path above;

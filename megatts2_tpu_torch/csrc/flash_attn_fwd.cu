@@ -62,10 +62,10 @@
 //
 // 2. fp32 (all head dims) and bf16 above Dh 256 — the SIMT path, the first
 //    version (flash_fwd_kernel); other bf16 reaches it only when the caller
-//    asks (simt), to compare the two.  Instances at Dh 64, 96, 128, 256 and
-//    512; the wrapper zero-pads any other head dim to the next one, and
-//    above 512 to the next multiple of 256, and passes the true Dh's scale.
-//    Above 512 one instance (chunks of 256 columns) loops over the chunks:
+//    asks (simt), to compare the two.  Instances at Dh 64, 96, 128 and 256;
+//    the wrapper zero-pads any other head dim to the next one, and above 256
+//    to the next multiple of 256, and passes the true Dh's scale.  Above 256
+//    one instance (chunks of 256 columns) loops over the chunks:
 //    each block sums the scores over every chunk of Q and K, staged in
 //    turn, and accumulates one chunk of the output (grid x), so shared
 //    memory stays that of Dh 256 at any head dim; S is recomputed once a
@@ -165,7 +165,7 @@ __device__ __forceinline__ void load_rows2(float* d1, int p1, const T* s1, long 
 }
 
 // The head dim is nc chunks of DH columns: NC = 1 (one chunk, fixed at
-// compile time) for the instances up to 512; NC = 0 above, with nc = Dh / 256
+// compile time) for the instances up to 256; NC = 0 above, with nc = Dh / 256
 // chunks given at run time.  Block x = (query tile) * nc + chunk writes
 // output columns [chunk DH, (chunk + 1) DH).  With one chunk Q is loaded
 // once; with more, the scores sum over the chunks in order (kernel C
@@ -305,7 +305,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
   return cudaGetLastError();
 }
 
-// Above 512 the head dim runs in chunks of WIDE columns (the wrapper pads it
+// Above 256 the head dim runs in chunks of WIDE columns (the wrapper pads it
 // to a multiple of WIDE).
 constexpr int WIDE = 256;
 
@@ -326,10 +326,8 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v,
       return MT_LAUNCH(128, 1, 1);
     case 256:
       return MT_LAUNCH(256, 1, 1);
-    case 512:
-      return MT_LAUNCH(512, 1, 1);
     default:
-      if (Dh > 512 && Dh % WIDE == 0) return MT_LAUNCH(WIDE, 0, Dh / WIDE);
+      if (Dh > WIDE && Dh % WIDE == 0) return MT_LAUNCH(WIDE, 0, Dh / WIDE);
       return cudaErrorInvalidValue;
   }
 #undef MT_LAUNCH
@@ -585,7 +583,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* k_len
 
 // q (B, Tq, H, Dh), k and v (B, Tk, H, Dh), o (B, Tq, H, Dh): element strides
 // over (b, t, h), unit stride over Dh.  k_lens is (B,) int32 or null (all
-// keys valid).  Dh is 64, 96, 128, 256, 512 or a multiple of 256 above.
+// keys valid).  Dh is 64, 96, 128 or a multiple of 256.
 // is_bf16 selects __nv_bfloat16 over float for all four: 1 takes the
 // tensor-core path at Dh 64, 96, 128 and 256 (bf16 tensors with 16-byte
 // aligned bases and strides) and the SIMT path above; 2 takes the SIMT path,

@@ -19,7 +19,7 @@ the output is in q's dtype.
   (``wgmma`` and TMA loads; :func:`uses_tensor_cores`); fp32, and bf16
   above 256, their SIMT path.  Any other head dim runs zero-padded to the
   next instance (:func:`instance_head_dim`, :func:`pad_head_dim`) at its own
-  scale: up to 512 the next of :data:`HEAD_DIMS`, above it the next
+  scale: up to 256 the next of :data:`HEAD_DIMS`, above it the next
   multiple of 256, which the SIMT kernels run in chunks of 256 columns.  The tensor-core path's forward
   splits P into bf16 hi + lo parts for P V (the row sum stays fp32).  TMA
   reads a tensor only from a 16-byte-aligned base with 16-byte strides
@@ -41,8 +41,8 @@ import torch
 
 from .masks import NEG_INF
 
-HEAD_DIMS = (64, 96, 128, 256, 512)  # the kernels' template instances
-WIDE_CHUNK = 256  # above 512 the SIMT kernels loop over chunks of this many columns
+HEAD_DIMS = (64, 96, 128, 256)  # the kernels' template instances
+WIDE_CHUNK = 256  # above 256 the SIMT kernels loop over chunks of this many columns
 # bf16 head dims of kernels B's and C's tensor-core path: the PLM (64), the
 # ADM at tc_emb_dim 512 (96; the tiles are 128 wide, TMA filling columns
 # 96-127 with zeros) and the MRTE's phone encoder (256: two blocks split the
@@ -52,7 +52,7 @@ TC_HEAD_DIMS = (64, 96, 128, 256)
 
 def instance_head_dim(head_dim: int) -> int:
     """The kernel instance a head dim runs on: the smallest of
-    :data:`HEAD_DIMS` that holds it, above 512 the next multiple of
+    :data:`HEAD_DIMS` that holds it, above 256 the next multiple of
     :data:`WIDE_CHUNK`.  Any other head dim is zero-padded to it
     (:func:`pad_head_dim`)."""
     for d in HEAD_DIMS:

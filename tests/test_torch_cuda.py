@@ -177,7 +177,7 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: runs on the SIMT instance at 512
+    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: the SIMT kernels run it as two chunks of 256
     out = tatt.flash_attention_cuda(x, x, x)
     torch.cuda.synchronize()
     assert out.shape == x.shape and not out.any()
@@ -309,9 +309,10 @@ def test_flash_backward_kernel_at_the_mrte_shape_bf16(cuda, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernels_above_head_dim_256(cuda, head_dim, dtype, causal):
-    """Head dims above 256 on the SIMT path: up to 512 its instance at 512,
-    above it chunks of 256 columns (640 zero-padded to 768); forward, row
-    statistics and backward against the plain versions."""
+    """Head dims above 256 on the SIMT path, zero-padded to the next
+    multiple of 256 and run as chunks of 256 columns (257, 320 and 512 as
+    two, 640 as three); forward, row statistics and backward against the
+    plain versions."""
     g = torch.Generator().manual_seed(12)
     q, k, v, go = _qkv((3, 70, 2, head_dim), 4, g, cuda, dtype)
     lens = _lens(3, 70).to(cuda)
@@ -332,7 +333,7 @@ def test_flash_kernels_above_head_dim_256(cuda, head_dim, dtype, causal):
 
 
 def test_flash_backward_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: runs on the SIMT instance at 512
+    x = torch.zeros(1, 8, 2, 320, device=cuda)  # above 256: the SIMT kernels run it as two chunks of 256
     st = torch.ones(1, 2, 8, device=cuda)
     grads = tatt.flash_attention_bwd_cuda(x, x, x, None, False, x, st, st)
     torch.cuda.synchronize()

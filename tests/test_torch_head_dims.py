@@ -1,5 +1,5 @@
 """Kernels B and C at every head dim: the wrappers zero-pad a head dim that
-is no kernel instance to the next one (above 512, to the next multiple of
+is no kernel instance to the next one (above 256, to the next multiple of
 256, which the SIMT kernels run in chunks) and pass the true head dim's
 softmax scale.  Here the same plan runs through the plain versions on the
 CPU and is held against plain attention at the true head dim, and the
@@ -21,10 +21,10 @@ def test_instance_head_dim(dh, inst):
 @pytest.mark.parametrize("dh,inst", [(257, 512), (320, 512), (512, 512), (513, 768),
                                      (640, 768)])
 def test_instance_head_dim_above_256(dh, inst):
-    """Up to 512 the SIMT instance at 512; above it the next multiple of
-    256, run as chunks of 256 columns."""
+    """The next multiple of 256, run by the SIMT kernels as chunks of 256
+    columns."""
     assert att.instance_head_dim(dh) == inst
-    assert inst <= 512 or inst % att.WIDE_CHUNK == 0
+    assert inst % att.WIDE_CHUNK == 0
     assert not att.uses_tensor_cores(torch.bfloat16, inst)
 
 
