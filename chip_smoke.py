@@ -118,7 +118,9 @@ Added for the serving slice (run after the kernels phase and the slice):
    and bf16 (bf16 on the tensor cores and on SIMT), causal and not, against
    their plain versions under ``ATOL_ATT`` and ``REL_BWD``; B and C above
    head dim 256 (257, 320, 512 and 640 at (3, 70, 2, Dh), fp32 and bf16,
-   causal and not, on SIMT); B and C at Dh 96 bf16 timed on each route
+   causal and not, on SIMT; at 320 also timed, fp32 and bf16, beside
+   plain, SDPA's forward and autograd backward, and the bound); B and C at
+   Dh 96 bf16 timed on each route
    (event ms, device and host us, plain, SDPA, bound) and kernel B causal
    at the engine's prefill (8, 2048, 16, 64) bf16, timed beside SDPA and
    the bound.
@@ -167,6 +169,25 @@ Added for the training pipeline (run last):
    memory, checkpoint MiB and launches, beside the card's name and power
    limit.  Losses and latents finite, shapes and counts as expected.
 
+Added for the measurement tools (run after the pipeline):
+
+16. tools — the functions of ``megatts2_tpu_torch/tools``' measurement
+   tools on the card, every counter set to 0 before each and read after:
+   ``bench_train``'s four stages at full width (B and C only on the tensor
+   cores in the PLM step, A and its backward in the vocoder step; the GAN's
+   MFU in (0, 1)); ``profile_train gan``, top 10, with the idle share of
+   the traced window; ``http_bench`` at full width, 8 requests from 4
+   clients at 8 rps offered (A on the prompt); ``bench_input_pipeline``
+   on a 4 x 12 corpus (stage 0; stage 1 at 1 and 2 workers, A once a mel
+   batch; 10 loader batches, native ring and numpy; 4 loader-fed GAN
+   steps); ``long_train`` on that corpus (SIGKILLed once its log reaches
+   step 6, resumed to step 10 from its checkpoint: two launches) and
+   ``long_run_summary`` of its log (one resume); ``bench_input_pipeline``'s stage 2 from that
+   run's checkpoint, then 2 loader-fed PLM steps (B and C on the tensor
+   cores) and 2 ADM steps.  Every record parses, every number in it is
+   finite and every rate positive; every line names the card and its
+   power limit.
+
 Each phase's seconds are printed.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -211,10 +232,6 @@ MRTE_EDGE_LENS = [64, 0, 33, 63, 1, 17, 64, 48]  # kernel C's check only: length
 # (hi + lo), so each layer's bf16 attention output may differ by a bf16 ulp
 # (2^-8) and the loss by a few of them over 8 layers
 ADM_FLASH_RTOL = 2e-2
-# H100 SXM peaks (NVIDIA's data sheet, dense): memory rate, and operations
-# per ms by type; a kernel's bound is the larger of bytes and operations
-HBM_BYTES_PER_MS = 3.35e9
-PEAK_OPS_PER_MS = {"bf16": 989e9, "fp32": 67e9, "int8": 1979e9}
 PUMP_SHAPE, PUMP_STEPS = (144, 256, 4096), 16  # tools/bw_ceiling.py's W; the fit's first point
 TEMPERATURE = 0.8  # the sampled slices' PLM temperature, at top-k 8
 
@@ -233,8 +250,12 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 def bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
     """(least ms the card could take, what sets it): the bytes over the memory
-    rate or the operations over the peak rate of their type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, ops / PEAK_OPS_PER_MS[kind]
+    rate or the operations over the peak rate of their type (``kind`` bf16,
+    fp32 or int8), at the H100 SXM's peaks of ``utils/flops.py``."""
+    from megatts2_tpu_torch.utils.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
+
+    peak = PEAK_FLOPS["f32" if kind == "fp32" else kind]
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -809,6 +830,48 @@ def wide_head_dims(dev: torch.device, err: dict) -> None:
     torch.cuda.synchronize()
 
 
+WIDE_TIMED = 320  # the head dim above 256 timed: two chunks of 256 on SIMT
+
+
+def time_wide_head_dims(dev: torch.device, card: str, k: dict) -> None:
+    """Kernels B and C at (3, 70, 2, WIDE_TIMED), fp32 and bf16, key lengths
+    70, 1 and 24, not causal: kernel and plain in turns, SDPA (a boolean
+    mask) and its autograd backward, and the bound; into ``k`` under
+    ``wide_<dtype>`` and ``bwd_wide_<dtype>``."""
+    from megatts2_tpu_torch.ops import attention as att
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    lens = torch.tensor([70, 1, 24], dtype=torch.int32, device=dev)
+    pairs = attn_pairs([70, 1, 24], 70, 2, False)
+    for dtype, kind in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k_, v, g = (torch.randn(3, 70, 2, WIDE_TIMED, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        _, m, l = att.flash_attention_cuda(q, k_, v, lens, return_stats=True)
+        fwd, bwd = f"wide_{kind}", f"bwd_wide_{kind}"
+        k["ms"][fwd] = in_turns(lambda: att.flash_attention_plain(q, k_, v, lens),
+                                lambda: att.flash_attention_cuda(q, k_, v, lens))
+        k["ms"][bwd] = in_turns(lambda: att.flash_attention_bwd_plain(q, k_, v, lens, False, g, m, l),
+                                lambda: att.flash_attention_bwd_cuda(q, k_, v, lens, False, g, m, l))
+        mask = sdpa_mask(lens, 70, False)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k_, v))
+        k["lib"][fwd] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k_, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        gt = g.transpose(1, 2)
+        k["lib"][bwd] = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+        del out, qt, kt, vt
+        elt = q.element_size()
+        k["bound"][fwd] = bound(4 * q.numel() * elt, 4 * WIDE_TIMED * pairs, kind)
+        k["bound"][bwd] = bound(7 * q.numel() * elt + 2 * m.numel() * 4, 10 * WIDE_TIMED * pairs, kind)
+        for name, key in (("flash_attention", fwd), ("flash_attention_bwd", bwd)):
+            tk, tp = k["ms"][key]
+            print(f"time {name} (3,70,2,{WIDE_TIMED}) {kind} (simt, chunks of 256): kernel {tk:.4f} ms, "
+                  f"plain {tp:.4f} ms, library (SDPA{' autograd backward' if key == bwd else ''}) "
+                  f"{k['lib'][key]:.4f} ms, bound {k['bound'][key][0]:.6f} ms by {k['bound'][key][1]} "
+                  f"[{card}]")
+    torch.cuda.synchronize()
+
+
 def phase_kernels_serving(dev: torch.device, card: str, k: dict) -> None:
     """Kernels B and C at head dims 96 and 80, fp32 and bf16 (bf16 on the
     tensor cores and on SIMT), against their plain versions; both at Dh 96
@@ -856,6 +919,7 @@ def phase_kernels_serving(dev: torch.device, card: str, k: dict) -> None:
                       f"{shape[3]} on instance {att.instance_head_dim(shape[3])}): max_abs_err "
                       f"{'; '.join(line)} (atol {ATOL_ATT[dtype]}, bwd rel {REL_BWD[dtype]})")
     wide_head_dims(dev, err)
+    time_wide_head_dims(dev, card, k)
     # kernels B and C at Dh 96 bf16 (the ADM's self-attention), every row of
     # length 64, on each route; the library: SDPA and its autograd backward
     q, k_, v, g = (torch.randn(8, 64, 8, 96, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
@@ -2136,10 +2200,11 @@ def _ragged_lens(B: int, T: int, dev: torch.device) -> torch.Tensor:
                         device=dev)
 
 
-def _check_stage1_features(dev: torch.device, ds: str, card: str) -> None:
+def _check_stage1_features(dev: torch.device, ds: str, card: str, phase: str = "pipeline") -> None:
     """Stage 1's stored features (kernel A's mels, stored fp16) against the
     plain mel of the same bucket-padded signals on the card, cut to each
-    cut's frames: within ATOL_MEL plus one fp16 ulp of the plain value."""
+    cut's frames: within ATOL_MEL plus one fp16 ulp of the plain value.
+    ``phase`` names the phase in what is printed."""
     from megatts2_tpu_torch.data import CutManifest, FeatureReader
     from megatts2_tpu_torch.ops import mel
     from megatts2_tpu_torch.prepare_ds import SAMPLE_BUCKET
@@ -2156,17 +2221,19 @@ def _check_stage1_features(dev: torch.device, ds: str, card: str) -> None:
             ulp = np.spacing(np.abs(ref).astype(np.float16)).astype(np.float32)
             excess = float((np.abs(got - ref) - ulp).max())
             check(got.shape == ref.shape and excess <= ATOL_MEL,
-                  f"stage 1 {cut.id}: features {got.shape} vs {ref.shape}, {excess} over one fp16 ulp")
+                  f"{phase} stage 1 {cut.id}: features {got.shape} vs {ref.shape}, "
+                  f"{excess} over one fp16 ulp")
             worst, frames, n = max(worst, excess), frames + cut.num_frames, n + 1
             worst_abs = max(worst_abs, float(np.abs(got - ref).max()))
-    print(f"pipeline stage 1 features: {n} cuts, {frames} frames, kernel A's fp16 mels against the "
+    print(f"{phase} stage 1 features: {n} cuts, {frames} frames, kernel A's fp16 mels against the "
           f"plain mel of the same padded signals on the card: max_abs_err {worst_abs:.3g}, max excess "
           f"over one fp16 ulp {worst:.3g} (atol {ATOL_MEL}) [{card}]")
 
 
-def _check_path_shapes(dev: torch.device, shapes: dict, err: dict, card: str) -> None:
+def _check_path_shapes(dev: torch.device, shapes: dict, err: dict, card: str,
+                       phase: str = "pipeline") -> None:
     """Each kernel against its plain version at every launch signature the
-    pipeline gave it (the wrappers' ``shapes`` sets), on random inputs, on
+    ``phase`` gave it (the wrappers' ``shapes`` sets), on random inputs, on
     the route the path took, with ragged key lengths where it gave lengths."""
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel
@@ -2176,14 +2243,14 @@ def _check_path_shapes(dev: torch.device, shapes: dict, err: dict, card: str) ->
     for B, n in sorted(shapes["A"]):
         y = (torch.randn(B, n, generator=gen) * 0.1).to(dev)
         e = (mel.mel_spectrogram_cuda(y) - mel.mel_spectrogram_plain(y)).abs().max().item()
-        check(e <= ATOL_MEL, f"pipeline shape mel ({B}, {n}): err {e}")
+        check(e <= ATOL_MEL, f"{phase} shape mel ({B}, {n}): err {e}")
         worst["A"] = max(worst["A"], e)
     for B, n in sorted(shapes["A_bwd"]):
         y = (torch.randn(B, n, generator=gen) * 0.1).to(dev)
         g_mel = torch.randn(B, mel.num_frames(n), 80, generator=gen).to(dev)
         ref = mel.mel_spectrogram_bwd_plain(y, g_mel)
         e, top = (mel.mel_spectrogram_bwd_cuda(y, g_mel) - ref).abs().max().item(), ref.abs().max().item()
-        check(e <= REL_MEL_BWD * top, f"pipeline shape mel bwd ({B}, {n}): err {e}, max {top}")
+        check(e <= REL_MEL_BWD * top, f"{phase} shape mel bwd ({B}, {n}): err {e}, max {top}")
         worst["A_bwd"] = max(worst["A_bwd"], e)
     for B, Tq, Tk, H, dh, dtype, causal, tc, has_lens, stats in sorted(shapes["B"], key=str):
         q = torch.randn(B, Tq, H, dh, generator=gen).to(dev, dtype)
@@ -2197,7 +2264,7 @@ def _check_path_shapes(dev: torch.device, shapes: dict, err: dict, card: str) ->
         el = ((got[2] - ref[2]).abs() / ref[2]).max().item() if stats else 0.0
         check(att.flash_attention_cuda.tc_launches - tc0 == int(tc)
               and e <= ATOL_ATT[dtype] and em <= ATOL_M and el <= RTOL_L,
-              f"pipeline shape flash {(B, Tq, Tk, H, dh)} {dtype} causal={causal}: err {e}, m {em}, l {el}")
+              f"{phase} shape flash {(B, Tq, Tk, H, dh)} {dtype} causal={causal}: err {e}, m {em}, l {el}")
         worst["B"] = max(worst["B"], e)
     for B, Tq, Tk, H, dh, dtype, causal, tc, has_lens in sorted(shapes["C"], key=str):
         q, g = (torch.randn(B, Tq, H, dh, generator=gen).to(dev, dtype) for _ in range(2))
@@ -2209,14 +2276,14 @@ def _check_path_shapes(dev: torch.device, shapes: dict, err: dict, card: str) ->
         ge = _rel_errs(got, att.flash_attention_bwd_plain(q, k, v, lens, causal, g, m, l))
         check(att.flash_attention_bwd_cuda.tc_launches - tc0 == int(tc)
               and all(a <= REL_BWD[dtype] * t for a, t in ge),
-              f"pipeline shape flash bwd {(B, Tq, Tk, H, dh)} {dtype} causal={causal}: {ge}")
+              f"{phase} shape flash bwd {(B, Tq, Tk, H, dh)} {dtype} causal={causal}: {ge}")
         worst["C"] = max(worst["C"], *(a for a, _ in ge))
     torch.cuda.synchronize()
     for name, key in (("A", "mel"), ("A_bwd", "mel_bwd"), ("B", "flash"), ("C", "flash_bwd")):
         err[key] = max(err[key], worst[name])
         sigs = [", ".join(map(str, sig[:5])) + (f" {str(sig[5])[6:]}" if len(sig) > 5 else "")
                 for sig in sorted(shapes[name], key=str)]
-        print(f"pipeline shapes {name}: {len(sigs)} launch signatures held against the plain version, "
+        print(f"{phase} shapes {name}: {len(sigs)} launch signatures held against the plain version, "
               f"max_abs_err {worst[name]:.3g}: ({'), ('.join(sigs)}) [{card}]")
 
 
@@ -2361,6 +2428,157 @@ def phase_pipeline(dev: torch.device, card: str, root: str, err: dict) -> dict:
     return launches
 
 
+TOOLS_SPK, TOOLS_UTT = 4, 12  # bench_input_pipeline's corpus in the tools phase
+TOOLS_HTTP = (8, 4, 8.0)  # http_bench's requests, clients, offered rps
+TOOLS_LOADER_BATCHES, TOOLS_GAN_STEPS, TOOLS_LM_STEPS = 10, 4, 2
+# long_train: checkpoints every 4 steps, killed once the log reaches step 6
+# (two or more steps past the checkpoint it resumes from, so the log's step
+# sequence jumps back, as long_run_summary counts a resume), resumed to 10
+LONG_STEPS, LONG_VAL, LONG_KILL = 10, 4, 6
+
+
+def _tool(label: str, card: str, fn, *args, carded: bool = True, **kwargs) -> tuple:
+    """``fn(*args, emit=..., **kwargs)`` with every kernel counter at 0: its
+    JSON lines printed under ``label`` and parsed; every number in them
+    finite and, when ``carded``, each line naming the card and its power
+    limit.  Returns (fn's result, the launches)."""
+    lines = []
+
+    def emit(line: str) -> None:
+        print(f"tools {label}: {line}")
+        lines.append(json.loads(line))
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = fn(*args, emit=emit, **kwargs)
+    torch.cuda.synchronize()
+    n = _launches()
+    print(f"tools {label}: {time.perf_counter() - t0:.1f} s, launches A {n['A']} A_bwd {n['A_bwd']} "
+          f"B {n['B']} (tensor cores {n['B_tc']}) C {n['C']} (tensor cores {n['C_tc']}) [{card}]")
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [v for val in x.values() for v in numbers(val)]
+        if isinstance(x, (list, tuple)):
+            return [v for val in x for v in numbers(val)]
+        return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+    check(lines and all(np.isfinite(v) for rec in lines for v in numbers(rec)),
+          f"tools {label}: records {lines}")
+    check(not carded or all(rec.get("device", rec.get("detail", {}).get("device")) == card
+                            for rec in lines),
+          f"tools {label}: a record without the card's name and power limit")
+    torch.cuda.empty_cache()
+    return out, n
+
+
+def phase_tools(dev: torch.device, card: str, root: str, err: dict) -> dict:
+    """The measurement tools of ``megatts2_tpu_torch/tools`` driven through
+    their functions on the card: ``bench_train`` (all four stages at full
+    width), ``profile_train gan`` (top 10), ``http_bench`` at full width,
+    ``bench_input_pipeline`` on a 4 x 12 corpus (stages 0 and 1 at 1 and 2
+    workers, the loader, loader-fed GAN steps), ``long_train`` on that corpus
+    (killed past step LONG_KILL and resumed to LONG_STEPS), then
+    ``bench_input_pipeline``'s stage 2 from that run's checkpoint and its
+    loader-fed PLM and ADM steps; ``long_run_summary`` of the run's log.
+    As in the pipeline phase, every launch signature of kernels A, B and C
+    in this process is recorded and, after the tools, held against the
+    plain version (its worst error folded into ``err``), and stage 1's
+    stored features against the plain mel.  Returns each tool's launches."""
+    from megatts2_tpu_torch.tools import (bench_input_pipeline, bench_train, http_bench,
+                                          long_run_summary, long_train, profile_train)
+    from megatts2_tpu_torch.training.checkpoints import latest_checkpoint
+
+    def positive(recs, *keys):
+        vals = [r.get(key, r.get("detail", {}).get(key)) for r in recs for key in keys]
+        check(all(isinstance(x, (int, float)) and x > 0 for x in vals), f"tools: {keys} in {recs}")
+
+    launches = {}
+    wrappers = _path_wrappers()
+    for fn in wrappers.values():
+        fn.shapes = set()
+    for stage in ("plm", "adm", "vocoder", "gan"):
+        if stage in ("plm", "adm"):
+            rec, n = _tool(f"bench_train {stage}", card, bench_train.bench_lm, stage, 8, dev)
+            positive([rec], "value", "step_ms", "tokens_per_sec")
+        elif stage == "vocoder":
+            rec, n = _tool("bench_train vocoder", card, bench_train.bench_vocoder, 8, dev)
+            positive([rec], "value", "step_ms", "audio_sec_per_sec")
+        else:
+            rec, n = _tool("bench_train gan", card, bench_train.bench_gan, 8, dev)
+            positive([rec], "value", "step_ms", "mel_frames_per_sec", "gflop_per_step")
+            mfu = rec["detail"]["mfu"]
+            check(0 < mfu < 1, f"bench_train gan: mfu {mfu}")
+        launches[f"bench_train {stage}"] = n
+    n = launches["bench_train plm"]
+    check(n["B"] == n["B_tc"] > 0 and n["C"] == n["C_tc"] > 0,
+          f"bench_train plm: B and C must run on the tensor cores: {n}")
+    n = launches["bench_train vocoder"]
+    check(n["A"] > 0 and n["A_bwd"] > 0, f"bench_train vocoder: kernel A or its backward: {n}")
+
+    recs, launches["profile_train gan"] = _tool(
+        "profile_train gan", card, profile_train.profile, "gan", os.path.join(root, "trace_gan"), dev,
+        top=10)
+    window = recs[0]
+    check(len(recs) == 11 and window["busy_ms"] > 0 and 0 <= window["idle_share"] < 1,
+          f"profile_train gan: {window}")
+
+    requests, clients, rps = TOOLS_HTTP
+    rec, n = _tool("http_bench", card, http_bench.run, requests, clients, rps, device=dev)
+    positive([rec], "achieved_rps", "p50_ms", "p90_ms", "p99_ms", "max_ms")
+    check(rec["requests"] == requests and n["A"] > 0, f"http_bench: {rec}, launches {n}")
+    launches["http_bench"] = n
+
+    base = os.path.join(root, "tools")
+    n_files = TOOLS_SPK * TOOLS_UTT
+    (wavs, tgs, ds), _ = _tool("corpus", card, bench_input_pipeline.build_corpus, base,
+                                  TOOLS_SPK, TOOLS_UTT, device=dev)
+    _tool("stage 0", card, bench_input_pipeline.run_stage, 0, wavs, tgs, ds, 1, n_files, device=dev)
+    for workers in (1, 2):
+        rec, n = _tool(f"stage 1 ({workers} workers)", card, bench_input_pipeline.run_stage, 1,
+                          wavs, tgs, ds, workers, n_files, device=dev)
+        positive([rec], "files_per_s")
+        check(rec["result"]["cuts"] == n_files and n["A"] == rec["result"]["mel_batches"] > 0,
+              f"bench_input_pipeline stage 1: {rec}, kernel A launches {n['A']}")
+        launches[f"bench_input_pipeline stage 1 ({workers})"] = n
+    recs, _ = _tool("loader", card, bench_input_pipeline.bench_loader, ds, TOOLS_LOADER_BATCHES,
+                       dev)
+    positive(recs, "batches_per_s")
+    check([r["native_ring"] for r in recs] == [True, False], f"bench_input_pipeline loader: {recs}")
+    rec, launches["bench_input_pipeline gan"] = _tool(
+        "gan steps", card, bench_input_pipeline.bench_gan_steps, ds, TOOLS_GAN_STEPS, dev)
+    positive([rec], "steps_per_s")
+
+    rec, launches["long_train"] = _tool("long_train", card, long_train.run, base, LONG_STEPS,
+                                        LONG_VAL, LONG_KILL, device=dev, log_every=1)
+    mpath = os.path.join(base, "logs50k", "gan_metrics.jsonl")
+    check(len(rec["launches"]) == 2 and [x["rc"] for x in rec["launches"]] == [-9, 0]
+          and rec["killed_at_step"] is not None and long_train.metrics_step(mpath) == LONG_STEPS,
+          f"long_train: {rec}")
+    summary, _ = _tool("long_run_summary", card, long_run_summary.summarize, mpath, carded=False)
+    check(summary["max_step"] == LONG_STEPS and len(summary["resume_events"]) == 1,
+          f"long_run_summary: {summary}")
+
+    ckpt = latest_checkpoint(os.path.join(base, "ckpts50k", "gan"))
+    rec, launches["bench_input_pipeline stage 2"] = _tool(
+        "stage 2", card, bench_input_pipeline.bench_stage2, ds, ckpt, "configs/config_gan.yaml", dev)
+    check(rec["result"]["cuts"] == n_files, f"bench_input_pipeline stage 2: {rec}")
+    for stage in ("plm", "adm"):
+        rec, n = _tool(f"{stage} steps", card, bench_input_pipeline.bench_lm_steps, stage, ds,
+                          TOOLS_LM_STEPS, f"configs/config_{stage}.yaml", dev)
+        positive([rec], "steps_per_s")
+        launches[f"bench_input_pipeline {stage}"] = n
+    n = launches["bench_input_pipeline plm"]
+    check(n["B_tc"] > 0 and n["C_tc"] > 0, f"bench_input_pipeline plm: B and C on the tensor cores: {n}")
+    shapes = {name: fn.shapes for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.shapes = None
+    _check_stage1_features(dev, ds, card, "tools")
+    _check_path_shapes(dev, shapes, err, card, "tools")
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2389,6 +2607,7 @@ def main() -> None:
         _timed("vocoder reference", phase_vocoder_reference, dev)
         vocoder = _timed("vocoder train", phase_vocoder_train, dev, card, root)
         pipeline = _timed("pipeline", phase_pipeline, dev, card, root, k["err"])
+        tools = _timed("tools", phase_tools, dev, card, root, k["err"])
     adm = train["adm_flash"]
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
     served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
@@ -2397,9 +2616,18 @@ def main() -> None:
         return None if us is None else us / 1e3
 
     def piped(key):
-        """(launches, by step) of the pipeline phase for one counter."""
+        """(launches, by step) of the pipeline and tools phases for one counter."""
         by = {f"pipeline {label}": n[key] for label, n in pipeline.items() if n[key]}
+        by.update({f"tools {label}": n[key] for label, n in tools.items() if n[key]})
         return sum(by.values()), by
+
+    def wide(key):
+        """Kernel B's or C's times at (3, 70, 2, WIDE_TIMED), fp32 and bf16."""
+        return {f"{name}_dh{WIDE_TIMED}_{kind}": val for kind in ("fp32", "bf16")
+                for name, val in (("ms", k["ms"][f"{key}_{kind}"][0]),
+                                  ("plain_ms", k["ms"][f"{key}_{kind}"][1]),
+                                  ("bound_ms", k["bound"][f"{key}_{kind}"][0]),
+                                  ("library_ms", k["lib"][f"{key}_{kind}"]))}
 
     def row(name, source, replaces, key, err_key, launches, shape, **extra):
         ms, plain_ms = k["ms"][key]
@@ -2457,7 +2685,7 @@ def main() -> None:
             device_ms_simt_mrte=_ms(k["split"]["flash_mrte_simt"]["device_us"]),
             host_ms_mrte=k["split"]["flash_mrte"]["host_us"] / 1e3,
             ms_prefill_256=k["ms"]["prefill_256"][0], ms_simt_prefill_256=k["simt"]["prefill_256"],
-            library_ms_prefill_256=k["lib"]["prefill_256"]),
+            library_ms_prefill_256=k["lib"]["prefill_256"], **wide("wide")),
         row("flash_attention_bwd", "flash_attn_bwd.cu", "megatts2_tpu/ops/attention_pallas.py:161",
             "flash_bwd", "flash_bwd", train["flash_bwd"] + adm["C"] + gan["flash_bwd"] + piped("C")[0],
             "(8, 1024, 16, 64) bf16 causal", library="scaled_dot_product_attention backward",
@@ -2477,7 +2705,7 @@ def main() -> None:
             bound_ms_dh96=k["bound"]["bwd_dh96"][0], library_ms_dh96=k["lib"]["bwd_dh96"],
             ms_simt_dh96=k["simt"]["bwd_dh96"], device_ms_dh96=_ms(k["split"]["bwd_dh96"]["device_us"]),
             device_ms_simt_dh96=_ms(k["split"]["bwd_dh96_simt"]["device_us"]),
-            host_ms_dh96=k["split"]["bwd_dh96"]["host_us"] / 1e3),
+            host_ms_dh96=k["split"]["bwd_dh96"]["host_us"] / 1e3, **wide("bwd_wide")),
         row("pump", "pump.cu", "tools/bw_ceiling.py:154", "pump", "pump", pump_launches,
             f"{PUMP_SHAPE} int8 x {PUMP_STEPS} passes",
             library=f"{PUMP_STEPS} x torch.sum(W.view(int32), dtype=int64)",

@@ -38,7 +38,7 @@ from ..config import DiscriminatorConfig, MegaGConfig, TrainConfig
 from ..models import Discriminator, MegaG, init_random_
 from ..nn import Draws
 from ..quantization.vq import EuclideanCodebook
-from .lm_trainers import Metrics, _on, _train_device, compute_dtype
+from .lm_trainers import Metrics, _on, train_device, compute_dtype
 from .schedules import make_adamw
 
 
@@ -63,7 +63,7 @@ def create_gan_state(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig, tcfg: Train
     """G and D with seeded random weights on ``device``, fp32, the codebook
     empty (kmeans-initialised by the first train step), and their AdamW.
     The card unless the caller asks for the CPU; raises without a card."""
-    device = _train_device(device)
+    device = train_device(device)
     with torch.no_grad():
         gen = torch.Generator().manual_seed(tcfg.seed)
         g, d = init_random_(MegaG(g_cfg), gen), init_random_(Discriminator(d_cfg), gen)

@@ -64,10 +64,12 @@ def _create_state(model: nn.Module, tcfg: TrainConfig, device) -> TrainState:
     return TrainState(model, opt, sched, gen)
 
 
-def _train_device(device) -> torch.device:
+def train_device(device) -> torch.device:
+    """``device`` as a torch device; raises for the card when there is none."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("training: device 'cuda' requested but no CUDA device is available")
+        raise RuntimeError("training: device 'cuda' requested but no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
     return device
 
 
@@ -75,18 +77,21 @@ def create_plm_state(cfg: MegaPLMConfig, tcfg: TrainConfig, device="cuda") -> Tr
     """A MegaPLM with seeded random weights on ``device``, fp32, and its AdamW.
     The card unless the caller asks for the CPU; raises without a card."""
     with torch.no_grad():
-        return _create_state(MegaPLM(cfg), tcfg, _train_device(device))
+        return _create_state(MegaPLM(cfg), tcfg, train_device(device))
 
 
 def create_adm_state(cfg: MegaADMConfig, tcfg: TrainConfig, device="cuda") -> TrainState:
     """A MegaADM with seeded random weights on ``device``, fp32, and its AdamW.
     The card unless the caller asks for the CPU; raises without a card."""
     with torch.no_grad():
-        return _create_state(MegaADM(cfg), tcfg, _train_device(device))
+        return _create_state(MegaADM(cfg), tcfg, train_device(device))
 
 
 def _on(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True) for k, v in batch.items()}
+    """The batch on ``device``: numpy arrays uploaded, tensors moved (a
+    batch already there, as ``tools/bench_train.py`` times, stays put)."""
+    return {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+            .to(device, non_blocking=True) for k, v in batch.items()}
 
 
 def _device(state: TrainState) -> torch.device:

@@ -33,7 +33,7 @@ from ..config import HiFiGANConfig, VocoderTrainConfig, VocosConfig, WaveDiscCon
 from ..models import HiFiGAN, Vocos, init_random_, vocode
 from ..models.wave_dscrm import WaveDiscriminator
 from ..ops.mel import mel_spectrogram
-from .lm_trainers import Metrics, _train_device, compute_dtype
+from .lm_trainers import Metrics, train_device, compute_dtype
 from .schedules import adamw, exponential_decay
 
 VocoderConfig = Union[HiFiGANConfig, VocosConfig]
@@ -61,7 +61,7 @@ def create_vocoder_state(voc_cfg: VocoderConfig, d_cfg: WaveDiscConfig, tcfg: Vo
     discriminator with seeded random weights on ``device``, fp32, and their
     AdamW.  The card unless the caller asks for the CPU; raises without a
     card."""
-    device = _train_device(device)
+    device = train_device(device)
     with torch.no_grad():
         gen = torch.Generator().manual_seed(tcfg.seed)
         g = Vocos(voc_cfg) if isinstance(voc_cfg, VocosConfig) else HiFiGAN(voc_cfg)
