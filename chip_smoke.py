@@ -26,15 +26,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
    views off TMA's 16-byte rule (copied and counted); kernel D (the copy
    pump) at (3, 16, 256) and the tool's (144, 256, 4096) for 1, 2 and 16
    passes, both outputs exact; kernel A's backward against autograd through
-   the plain mel at the vocoder trainer's (8, 16384) (through the trainer's
-   [:, :64] slice and without), (1, 513), (3, 777) and (8, 131000); then kernel and plain timed in turns
+   the plain mel at the vocoder trainer's (8, 16384) and (16, 16384)
+   (through the trainer's [:, :64] slice and without), (1, 513), (3, 777),
+   (8, 131000) and its block plan's edges, each bit-equal on a second call
+   and in the halo-only variant, one device kernel a call in a
+   ``torch.profiler`` trace; then kernel and plain timed in turns
    (plain, kernel, kernel, plain) with CUDA events, each beside its bound
    (the larger of its bytes over 3.35 TB/s and its operations over the
    peak rate of their type) and one PyTorch library call that computes the
    same function; kernels A and B at the synthesis shapes, and B and C at
    the PLM's training shape, also split into device us (``torch.profiler``) and the host's issue us a call
    (``tools/kernel_times.py``'s cases, kernel A's backward at (8, 16384)
-   too, beside the autograd backward of ``torch.stft`` + filterbank + log),
+   and (16, 16384) too, also in its halo-only variant, beside the autograd
+   backward of ``torch.stft`` + filterbank + log),
    with what kernel B's tensor-core
    wrapper adds to the host's cost; the attention kernels also beside their
    SIMT path, with the achieved TFLOP/s, the backward's two passes from a
@@ -220,6 +224,12 @@ REL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # kernel A's backward, as a fraction of the gradient's largest magnitude:
 # the FFTs and sums in other orders, log's 1/mel amplifying where a mel is small
 REL_MEL_BWD = 1e-4
+# kernel A's backward at its block plan's edges (ops/mel.py::bwd_plan): rows
+# of 5 frames (shorter than a block), 7 and 28 (the block before the last
+# gives up a frame), 24 (one whole cluster), 25 (the last block a cluster's
+# first), 66
+MEL_BWD_EDGES = ((2, 1024), (2, 1025), (2, 1279), (2, 1536), (3, 5888), (2, 6144), (2, 6912),
+                 (2, 16640))
 SEED = 0
 PLM_B, PLM_L = 8, 1024  # tools/bench_train.py's PLM geometry
 VOC_B = 8  # tools/profile_train.py's vocoder geometry: B=8, segment_frames 64
@@ -430,6 +440,20 @@ def ptxas_report(log: Path = None) -> tuple:
     return tc, simt
 
 
+def ptxas_line(kernel: str) -> str:
+    """ptxas's register, shared memory and spill report of one kernel, from
+    the built library's log."""
+    from megatts2_tpu_torch.csrc import build
+
+    lines = (build.library_path().parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            rep = f"{lines[i + 1].strip()}; {lines[i + 2].strip()}"
+            used = next((ln.strip() for ln in lines[i + 3:i + 6] if "Used" in ln), "")
+            return f"{rep}; {used}"
+    return "not in the build log"
+
+
 def phase_kernels(dev: torch.device, card: str) -> dict:
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel, pump
@@ -467,11 +491,15 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         print(f"kernel mel_spectrogram {shape}: max_abs_err {e:.3g} (atol {ATOL_MEL})")
     # kernel A's backward: the vocoder trainer's crops (B 8 and the config's
     # 16), through its [:, :64] slice (autograd, the Function on the card) and
-    # whole; the shortest signal; ragged rows; the batched front end
+    # whole; the shortest signal; ragged rows; the batched front end; the
+    # block plan's edges (MEL_BWD_EDGES).  Each also called directly: a second
+    # call and the halo-only variant (clusters of one block) give the same
+    # bits, and a trace of the direct calls shows one kernel a call
     err["mel_bwd"] = 0.0
+    direct = []
     for shape, keep in (((8, 16384), 64), ((8, 16384), None), ((16, 16384), 64),
                         ((16, 16384), None), ((1, 513), None), ((3, 777), None),
-                        ((8, 131000), None)):
+                        ((8, 131000), None), *((s, None) for s in MEL_BWD_EDGES)):
         y = (torch.randn(shape, generator=gen) * 0.1).to(dev)
         g_mel = torch.randn(shape[0], mel.num_frames(shape[-1]), 80, generator=gen).to(dev)
         if keep is None:
@@ -484,9 +512,18 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
         e, top = (got - ref).abs().max().item(), ref.abs().max().item()
         check(bool(torch.isfinite(got).all()) and e <= REL_MEL_BWD * top,
               f"mel bwd {shape} keep {keep}: err {e}, max {top}")
+        same = (torch.equal(mel.mel_spectrogram_bwd_cuda(y, g_mel), got)
+                and torch.equal(mel.mel_spectrogram_bwd_cuda(y, g_mel, cluster=1), got))
+        check(same, f"mel bwd {shape} keep {keep}: a second call or the halo-only variant differs")
+        direct.append((y, g_mel))
         err["mel_bwd"] = max(err["mel_bwd"], e)
         print(f"kernel mel_spectrogram_bwd {shape}{f' [:, :{keep}]' if keep else ''}: max_abs_err "
-              f"{e:.3g} of max {top:.3g} (rel {REL_MEL_BWD})")
+              f"{e:.3g} of max {top:.3g} (rel {REL_MEL_BWD}); bit-equal again and at clusters of 1")
+    names = kernel_times.device_kernels(lambda: [mel.mel_spectrogram_bwd_cuda(*a) for a in direct])
+    check(len(names) == len(direct) and all("mel_bwd" in name for name in names),
+          f"mel bwd: {len(direct)} calls launched {names}")
+    print(f"trace mel_spectrogram_bwd: {len(direct)} calls, {len(names)} device kernels "
+          f"({sorted(set(names))}); ptxas {ptxas_line('mel_bwd_kernel')} [{card}]")
     torch.cuda.synchronize()
 
     # timing at the slice's shapes (tools/kernel_times.py's inputs): MRTE
@@ -757,35 +794,41 @@ def phase_kernels(dev: torch.device, card: str) -> dict:
     print(f"time mel_spectrogram (64001,) fp32: kernel {t_mel_prompt[0]:.4f} ms, plain "
           f"{t_mel_prompt[1]:.4f} ms, library {lib['mel_prompt']:.4f} ms, bound "
           f"{bounds['mel_prompt'][0]:.5f} ms by {bounds['mel_prompt'][1]} [{card}]")
-    # kernel A's backward at the vocoder trainer's (8, 16384); the plain
-    # version runs the plain forward and its autograd, as the kernel
-    # recomputes the forward; the library, the autograd backward alone of
-    # torch.stft + filterbank matmul + log over its saved graph
-    yb, gb = x["mel_bwd"]
-    t_mel_bwd = in_turns(lambda: mel.mel_spectrogram_bwd_plain(yb, gb),
-                         lambda: mel.mel_spectrogram_bwd_cuda(yb, gb))
-    yl = yb.detach().clone().requires_grad_()
-    ml = mel_library(yl)
-    lib["mel_bwd"] = cuda_ms(lambda: torch.autograd.grad(ml, yl, gb, retain_graph=True))
-    del ml, yl
-    # per frame: two real 1024-point FFTs, |X|, the filterbank forward and by
-    # bin (2 a nonzero each), the mels' division, G (6 a bin), the window;
-    # per sample the overlap-add (<= 4 frames, 3 adds)
-    fr_b = gb.shape[0] * gb.shape[1]
-    bwd_ops = fr_b * (2 * 2.5 * 1024 * 10 + 3 * 513 + 4 * nnz + 80 + 6 * 513 + 1024) + 3 * yb.numel()
-    bounds["mel_bwd"] = bound(2 * yb.numel() * 4 + gb.numel() * 4, bwd_ops, "fp32")
-    sp = split["mel_bwd"]
-    dev_us = "not measured" if sp["device_us"] is None else f"{sp['device_us']:.2f} us"
-    print(f"time mel_spectrogram_bwd (8,16384) fp32: kernel {t_mel_bwd[0]:.4f} ms, plain "
-          f"{t_mel_bwd[1]:.4f} ms, library (torch.stft + matmul + log, autograd backward) "
-          f"{lib['mel_bwd']:.4f} ms, bound {bounds['mel_bwd'][0]:.5f} ms by {bounds['mel_bwd'][1]} "
-          f"({bwd_ops / 1e6:.1f} MFLOP, {(2 * yb.numel() + gb.numel()) * 4 / 1e6:.2f} MB) [{card}]")
-    print(f"time split mel_spectrogram_bwd (8,16384) fp32: event {sp['event_ms']:.4f} ms, device "
-          f"{dev_us} (torch.profiler, both launches), host issue {sp['host_us']:.2f} us a call "
-          f"[{card}]")
+    # kernel A's backward at the vocoder trainer's (8, 16384) and the shipped
+    # config's (16, 16384); the plain version runs the plain forward and its
+    # autograd, as the kernel recomputes the forward; the library, the
+    # autograd backward alone of torch.stft + filterbank matmul + log over its
+    # saved graph
+    t_mel_bwd = {}
+    for key in ("mel_bwd", "mel_bwd_16"):
+        yb, gb = x[key]
+        t_mel_bwd[key] = in_turns(lambda: mel.mel_spectrogram_bwd_plain(yb, gb),
+                                  lambda: mel.mel_spectrogram_bwd_cuda(yb, gb))
+        yl = yb.detach().clone().requires_grad_()
+        ml = mel_library(yl)
+        lib[key] = cuda_ms(lambda: torch.autograd.grad(ml, yl, gb, retain_graph=True))
+        del ml, yl
+        # per frame: two real 1024-point FFTs, |X|, the filterbank forward and by
+        # bin (2 a nonzero each), the mels' division, G (6 a bin), the window;
+        # per sample the overlap-add (<= 4 frames, 3 adds)
+        fr_b = gb.shape[0] * gb.shape[1]
+        bwd_ops = fr_b * (2 * 2.5 * 1024 * 10 + 3 * 513 + 4 * nnz + 80 + 6 * 513 + 1024) + 3 * yb.numel()
+        bounds[key] = bound(2 * yb.numel() * 4 + gb.numel() * 4, bwd_ops, "fp32")
+        sp, halo = split[key], split[f"{key}_halo"]
+        dev_us = {name: "not measured" if s["device_us"] is None else f"{s['device_us']:.2f} us"
+                  for name, s in (("cluster", sp), ("halo", halo))}
+        shape = tuple(yb.shape)
+        print(f"time mel_spectrogram_bwd {shape} fp32: kernel {t_mel_bwd[key][0]:.4f} ms, plain "
+              f"{t_mel_bwd[key][1]:.4f} ms, library (torch.stft + matmul + log, autograd backward) "
+              f"{lib[key]:.4f} ms, bound {bounds[key][0]:.5f} ms by {bounds[key][1]} "
+              f"({bwd_ops / 1e6:.1f} MFLOP, {(2 * yb.numel() + gb.numel()) * 4 / 1e6:.2f} MB) [{card}]")
+        print(f"time split mel_spectrogram_bwd {shape} fp32: event {sp['event_ms']:.4f} ms, device "
+              f"{dev_us['cluster']} (torch.profiler), host issue {sp['host_us']:.2f} us a call; "
+              f"halo-only variant: event {halo['event_ms']:.4f} ms, device {dev_us['halo']}, host "
+              f"{halo['host_us']:.2f} us [{card}]")
     return {"err": err, "lib": lib, "bound": bounds, "simt": simt, "tflops": tflops, "split": split,
             "ms": {"flash": t_att, "mel": t_mel, "pump": t_pump, "flash_bwd_mrte": t_bwd_mrte,
-                   "mel_prompt": t_mel_prompt, "mel_bwd": t_mel_bwd, **times}}
+                   "mel_prompt": t_mel_prompt, **t_mel_bwd, **times}}
 
 
 # kernels B and C at the ADM's head dim: 96 (tc_emb_dim 512; 128-wide tiles on
@@ -2650,12 +2693,18 @@ def main() -> None:
             bound_ms_prompt=k["bound"]["mel_prompt"][0], library_ms_prompt=k["lib"]["mel_prompt"]),
         row("mel_spectrogram_bwd", "mel.cu",
             "megatts2_tpu/ops/mel.py:190 (no Pallas backward: JAX differentiates the jnp golden, "
-            "megatts2_tpu/ops/mel.py:121-132)", "mel_bwd", "mel_bwd",
+            "megatts2_tpu/ops/mel.py:114-132)", "mel_bwd", "mel_bwd",
             vocoder["mel_bwd"] + piped("A_bwd")[0], "(8, 16384) fp32, g_mel (8, 65, 80)",
             library="autograd backward of torch.stft + filterbank matmul + log",
             launches_by_path={"vocoder": vocoder["mel_bwd"], **piped("A_bwd")[1]},
             device_ms=_ms(k["split"]["mel_bwd"]["device_us"]),
-            host_ms=k["split"]["mel_bwd"]["host_us"] / 1e3),
+            host_ms=k["split"]["mel_bwd"]["host_us"] / 1e3,
+            device_ms_halo=_ms(k["split"]["mel_bwd_halo"]["device_us"]),
+            ms_16=k["ms"]["mel_bwd_16"][0], plain_ms_16=k["ms"]["mel_bwd_16"][1],
+            bound_ms_16=k["bound"]["mel_bwd_16"][0], library_ms_16=k["lib"]["mel_bwd_16"],
+            device_ms_16=_ms(k["split"]["mel_bwd_16"]["device_us"]),
+            host_ms_16=k["split"]["mel_bwd_16"]["host_us"] / 1e3,
+            device_ms_16_halo=_ms(k["split"]["mel_bwd_16_halo"]["device_us"])),
         row("flash_attention_fwd", "flash_attn_fwd.cu", "megatts2_tpu/ops/attention_pallas.py:111",
             "flash_plm", "flash",
             synth["flash"] + served["flash"] + train["flash"] + adm["B"] + gan["flash"] + piped("B")[0],

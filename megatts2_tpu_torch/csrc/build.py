@@ -35,7 +35,7 @@ _L = ctypes.c_longlong
 # C entry point → argument types; each returns a cudaError_t as int.
 SIGNATURES = {
     "mt_mel_forward": [_P] * 6 + [_I] * 4 + [_P],
-    "mt_mel_backward": [_P] * 10 + [_I] * 4 + [_P],
+    "mt_mel_backward": [_P] * 4 + [_I] * 5 + [_P],
     "mt_flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_I, ctypes.c_float, _I, _P],
     "mt_flash_attn_bwd": [_P] * 11 + [_I] * 5
     + [ctypes.POINTER(_L), _I, ctypes.c_float, _I, _P],

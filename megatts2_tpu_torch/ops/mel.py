@@ -13,7 +13,8 @@ Hann window, center=True reflect padding, then ``log(clamp(x, 1e-5))``.
   :func:`kernel_twiddles`, :func:`filterbank_tasks`).  On a signal that
   requires grad it records :class:`MelFunction`, whose backward is kernel
   A's backward, :func:`mel_spectrogram_bwd_cuda` (its bin table and
-  overlap-add gather stated here: :func:`bin_tasks`, :func:`fold_sources`).
+  block plan stated here: :func:`bin_tasks`, :func:`bwd_plan`, with the
+  adjoint the plan equals, :func:`fold_sources`).
 * :func:`mel_spectrogram` — dispatch by device: CPU → plain (autograd
   through the plain ops is the backward's plain version,
   :func:`mel_spectrogram_bwd_plain`), CUDA → kernel.
@@ -23,6 +24,7 @@ which cannot be imported without importing JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -234,16 +236,15 @@ def bin_tasks(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def fold_sources(n: int, n_fft: int = 1024) -> list[tuple[np.ndarray, np.ndarray]]:
-    """Kernel A's backward, second launch: where sample i of the signal's
-    gradient gathers from.  ``center=True`` pads the signal by n_fft/2 on
-    each side by reflection (no edge repeat), so sample i sits at padded
-    position q = i + n_fft/2, and also at q = n_fft/2 - i (1 <= i <= n_fft/2)
-    and q = 2 (n - 1) - i + n_fft/2 (n - 1 - n_fft/2 <= i <= n - 2); padded
-    position q holds the sum over the frames t in [t_lo(q), t_hi(q)] that
-    cover it, of frame t's gradient at q - t hop.  Returns, for each of the
-    three positions, (the samples i that have it, their q); the kernel
-    computes the same indices in the same formulas, and a CPU test runs
-    them in numpy."""
+    """Where sample i of the signal's gradient gathers from.  ``center=True``
+    pads the signal by n_fft/2 on each side by reflection (no edge repeat),
+    so sample i sits at padded position q = i + n_fft/2, and also at q =
+    n_fft/2 - i (1 <= i <= n_fft/2) and q = 2 (n - 1) - i + n_fft/2 (n - 1 -
+    n_fft/2 <= i <= n - 2); padded position q holds the sum over the frames
+    t in [t_lo(q), t_hi(q)] that cover it, of frame t's gradient at q - t
+    hop.  Returns, for each of the three positions, (the samples i that have
+    it, their q): the adjoint of reflect-pad and unfold, which kernel A's
+    backward computes in that order (:func:`bwd_plan`)."""
     half = n_fft // 2
     i = np.arange(n)
     left = (i >= 1) & (i <= half)
@@ -257,6 +258,68 @@ def frames_covering(q: np.ndarray, T: int, n_fft: int = 1024, hop: int = 256) ->
     t_lo = np.where(q >= n_fft, (q - n_fft) // hop + 1, 0)
     t_hi = np.minimum(q // hop, T - 1)
     return t_lo, t_hi
+
+
+# ---- kernel A's backward: the block, cluster and halo plan ------------------
+#
+# Padded hop slot h (positions 256 h .. 256 h + 255) is the sum of frames
+# h - 3 .. h.  A block computes BWD_FRAMES consecutive frames of one row and
+# owns a run of slots; what the 3 frames before its first slot add to that
+# slot and the next two (the carry) comes from the block before it through
+# distributed shared memory, or, at a cluster's first block, from 3 frames it
+# computes itself (the halo) in place of 3 of its own.  Each sample is
+# written by the block owning its padded position i + 512, which also owns
+# its reflected partners' slots.  csrc/mel.cu computes these formulas.
+
+BWD_FRAMES = 6  # frames a block computes, 64 threads each (csrc/mel.cu BWD_FRAMES)
+BWD_CLUSTER = 4  # blocks a thread-block cluster, laid along the row; 1: halo only
+BWD_HALO = 3  # frames before a slot that reach into it
+
+
+def bwd_owned_start(j: int, T: int, cluster: int = BWD_CLUSTER) -> int:
+    """First slot (and first frame) that block j of a T-frame row owns:
+    BWD_FRAMES a block, 3 fewer at each cluster's first block after the
+    row's first, T past the row's end.  Never T - 1: where the last block
+    would own one frame the block before it gives one up, so the last block
+    owns slots T - 2 .. T + 2, every slot the right edge's fold reads, as the
+    first owns slots 0 .. 4 (BWD_FRAMES >= 6)."""
+    o = 0 if j == 0 else j * BWD_FRAMES - BWD_HALO * ((j - 1) // cluster)
+    return T - 2 if o == T - 1 else min(o, T)
+
+
+def bwd_clusters(T: int, cluster: int = BWD_CLUSTER) -> int:
+    """Clusters a row: the first owns ``cluster * BWD_FRAMES`` frames, each
+    later one 3 fewer; the grid is this times ``cluster`` blocks a row."""
+    per = cluster * BWD_FRAMES - BWD_HALO
+    return 1 if T <= per + BWD_HALO else -(-(T - BWD_HALO) // per)
+
+
+def bwd_plan(n: int, cluster: int = BWD_CLUSTER) -> list[dict]:
+    """Kernel A's backward on a row of n samples, block by block (the grid's
+    x): ``first``, the first of the BWD_FRAMES frames it computes; its
+    frames ``own`` = [lo, hi); ``slots`` = [lo, end), past the row's last
+    frame the 3 slots its tail reaches; ``carry``: ``"none"`` (the row's
+    first block), ``"peer"`` (the block before it, in its cluster) or
+    ``"halo"`` (a cluster's first block: frames lo - 3 .. lo - 1 are its own
+    first three); ``samples`` = [i_lo, i_hi), those whose padded position
+    i + 512 lies in its slots.  Blocks past the row's end own nothing
+    (``own`` empty) and only join their cluster's syncs."""
+    if not 1 <= cluster <= 8:
+        raise ValueError(f"the kernel takes clusters of 1-8 blocks, got {cluster}")
+    T = num_frames(n)
+    blocks = []
+    for j in range(bwd_clusters(T, cluster) * cluster):
+        lo, hi = bwd_owned_start(j, T, cluster), bwd_owned_start(j + 1, T, cluster)
+        halo = j > 0 and j % cluster == 0
+        end = hi if hi < T else T + BWD_HALO
+        blocks.append({
+            "first": lo - BWD_HALO if halo else lo,
+            "own": (lo, hi),
+            "slots": (lo, end) if lo < T else (lo, lo),
+            "carry": "none" if j == 0 else "halo" if halo else "peer",
+            "samples": (max(0, 256 * (lo - 2)), min(n, 256 * (end - 2))) if lo < T else (n, n),
+        })
+    return blocks
 
 
 @functools.lru_cache(maxsize=8)
@@ -342,37 +405,81 @@ def _mel_forward(sig: torch.Tensor, n_mels: int) -> torch.Tensor:
     return out
 
 
-def mel_spectrogram_bwd_cuda(signal: torch.Tensor, g_mel: torch.Tensor) -> torch.Tensor:
+# the backward's table (:func:`bwd_table`), offsets in floats (csrc/mel.cu TB_*)
+BWD_TABLE_TW, BWD_TABLE_BIN_MELS, BWD_TABLE_BIN_WEIGHTS, BWD_TABLE_TASKS = 1024, 3200, 4228, 5256
+
+
+def bwd_table(n_mels: int, device: torch.device) -> torch.Tensor:
+    """Kernel A's backward reads its tables as one fp32 array, which each
+    block copies into shared memory at its start: the window (1024), the
+    twiddles (1088 complex), the bin mels (513 int2, as their bits) and
+    weights (513 float2), each padded by 2 floats to a 16-byte boundary, the
+    filterbank tasks (int4) and their weights (depth x n_mels / 2), padded
+    to a multiple of 4 floats; :func:`_kernel_tables`' entries, laid end to
+    end (csrc/mel.cu TB_*)."""
+    window, tw, tasks, weights, mels, bin_weights = _kernel_tables(n_mels, device)
+    pad = torch.zeros(2, device=device)
+    parts = [window, tw.flatten(), mels.view(torch.float32).flatten(), pad, bin_weights.flatten(), pad,
+             tasks.view(torch.float32).flatten(), weights.flatten()]
+    n = sum(p.numel() for p in parts)
+    return torch.cat(parts + [torch.zeros(-n % 4, device=device)])
+
+
+_BWD_LAUNCH: dict = {}  # device index -> (n_mels, library, the table's pointer and length, the table)
+
+
+def _bwd_launch(index: int, n_mels: int) -> tuple:
+    """What a launch on device ``index`` reads that does not change between
+    calls: the library and :func:`bwd_table`'s pointer and length (the
+    entry holds the table); one entry a device."""
+    from ..csrc.build import load_library
+
+    table = bwd_table(n_mels, torch.device("cuda", index))
+    entry = (n_mels, load_library(), table.data_ptr(), table.numel(), table)
+    _BWD_LAUNCH[index] = entry
+    return entry
+
+
+def mel_spectrogram_bwd_cuda(signal: torch.Tensor, g_mel: torch.Tensor,
+                             cluster: int = BWD_CLUSTER) -> torch.Tensor:
     """Kernel A's backward: the gradient of ``sum(g_mel * mel(signal))``
     with respect to the (B, n) fp32 contiguous CUDA ``signal``, for
-    ``g_mel`` (B, 1 + n // 256, n_mels).  Two launches (``csrc/mel.cu``):
-    each frame's gradient into a (B, T, 1024) scratch, then each sample
-    gathers its frames and its reflected partners (:func:`fold_sources`).
-    The clamp follows ``torch.clamp``: a mel at exactly 1e-5 passes its
-    whole gradient (JAX's ``clip`` passes half)."""
-    from ..csrc.build import check, load_library
+    ``g_mel`` (B, 1 + n // 256, n_mels).  One launch (``csrc/mel.cu``
+    ``mel_bwd_kernel``): each frame's gradient stays in shared memory, and
+    blocks hand on the overlap-add's carry through thread-block clusters of
+    ``cluster`` blocks (:func:`bwd_plan`; 1 is the halo-only variant, the
+    same bits).  The clamp follows ``torch.clamp``: a mel at exactly 1e-5
+    passes its whole gradient (JAX's ``clip`` passes half).
 
-    _check_kernel_args(signal, 1024, 256, 1024, g_mel.shape[-1])
-    if signal.dim() != 2 or not signal.is_contiguous():
+    The launcher is kept light: it allocates g_sig alone, copies g_mel only
+    if it is not fp32 and contiguous, enters the signal's device only if it
+    is not current, and finds the tables by device index."""
+    n_mels = g_mel.shape[-1]
+    if not (signal.is_cuda and signal.dtype == torch.float32 and signal.dim() == 2
+            and signal.is_contiguous() and not n_mels % 2 and n_mels <= 2 * FFT_THREADS
+            and signal.shape[1] > 512):
+        _check_kernel_args(signal, 1024, 256, 1024, n_mels)
         raise ValueError("mel_spectrogram_bwd_cuda takes a contiguous (B, n) signal")
     B, n = signal.shape
-    T, n_mels = num_frames(n), g_mel.shape[-1]
-    if tuple(g_mel.shape) != (B, T, n_mels) or g_mel.device != signal.device:
+    index = signal.get_device()
+    if g_mel.shape != (B, 1 + n // 256, n_mels) or g_mel.get_device() != index:
         raise ValueError(f"g_mel {tuple(g_mel.shape)} on {g_mel.device} does not match the "
-                         f"signal's mel ({B}, {T}, {n_mels}) on {signal.device}")
-    g_mel = g_mel.float().contiguous()
-    lib = load_library()
-    window, tw, tasks, weights, mels, bin_weights = _kernel_tables(n_mels, signal.device)
-    g_frames = torch.empty((B, T, 1024), dtype=torch.float32, device=signal.device)
+                         f"signal's mel ({B}, {num_frames(n)}, {n_mels}) on {signal.device}")
+    if g_mel.dtype != torch.float32 or not g_mel.is_contiguous():
+        g_mel = g_mel.float().contiguous()
+    entry = _BWD_LAUNCH.get(index)
+    if entry is None or entry[0] != n_mels:
+        entry = _bwd_launch(index, n_mels)
+    _, lib, table, table_len, _ = entry
     g_sig = torch.empty_like(signal)
-    with torch.cuda.device(signal.device):
-        err = lib.mt_mel_backward(
-            signal.data_ptr(), g_mel.data_ptr(), window.data_ptr(), tw.data_ptr(),
-            tasks.data_ptr(), weights.data_ptr(), mels.data_ptr(), bin_weights.data_ptr(),
-            g_frames.data_ptr(), g_sig.data_ptr(), B, n, T, n_mels,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check(err, "mel backward kernel")
+    current = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(index):
+        err = lib.mt_mel_backward(signal.data_ptr(), g_mel.data_ptr(), table, g_sig.data_ptr(), B, n,
+                                  n_mels, table_len, cluster, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        from ..csrc.build import check
+
+        check(err, "mel backward kernel")
     mel_spectrogram_bwd_cuda.launches += 1
     if mel_spectrogram_bwd_cuda.shapes is not None:
         mel_spectrogram_bwd_cuda.shapes.add((B, n))

@@ -3,7 +3,8 @@
     python megatts2_tpu_torch/tools/kernel_times.py [--root DIR]
 
 For kernels A and B at the synthesis path's shapes, kernel A's backward
-at the vocoder trainer's, and kernels B (with its statistics) and C at the
+at the vocoder trainer's (B 8 and 16; also with clusters of one block, its
+halo-only variant), and kernels B (with its statistics) and C at the
 PLM trainer's (:func:`cases`, the inputs ``chip_smoke.py`` times too),
 prints one JSON line each with three times per call, on the card:
 
@@ -25,6 +26,7 @@ Needs a card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import sys
@@ -57,6 +59,24 @@ def trace_kernels(fn: Callable, n: int = 2) -> dict:
         if ev.device_type == DeviceType.CUDA:
             ms[ev.name] = ms.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / n
     return ms
+
+
+def device_kernels(fn: Callable) -> list[str]:
+    """The names of the device kernels one warm call of ``fn`` launches, in
+    order, from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def host_us(fns: dict[str, Callable], iters: int = HOST_ITERS, rounds: int = HOST_ROUNDS) -> dict:
@@ -110,7 +130,8 @@ def inputs(dev: torch.device, seed: int = 0) -> dict:
     self-attention (8, 64, 2, 256) bf16 with mixed key lengths, the batched
     prompt front end (8, 131000) and one ~4 s prompt (64001,), fp32; and
     kernel A's backward on the vocoder trainer's crops, (8, 16384) fp32
-    with a gradient for each of its (8, 65, 80) mels; the PLM trainer's
+    with a gradient for each of its (8, 65, 80) mels, and at the shipped
+    config's batch of 16 (``mel_bwd_16``); the PLM trainer's
     causal self-attention (8, 1024, 16, 64) bf16 with mixed lengths, q, k,
     v and the output's gradient."""
     gen = torch.Generator().manual_seed(seed)
@@ -122,12 +143,15 @@ def inputs(dev: torch.device, seed: int = 0) -> dict:
             "mel": (torch.randn(8, 131000, generator=gen) * 0.1).to(dev),
             "mel_prompt": (torch.randn(64001, generator=gen) * 0.1).to(dev),
             "mel_bwd": ((torch.randn(8, 16384, generator=gen) * 0.1).to(dev),
-                        torch.randn(8, 65, 80, generator=gen).to(dev))}
+                        torch.randn(8, 65, 80, generator=gen).to(dev)),
+            "mel_bwd_16": ((torch.randn(16, 16384, generator=gen) * 0.1).to(dev),
+                           torch.randn(16, 65, 80, generator=gen).to(dev))}
 
 
 def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
     """name → (call, kernel name in the trace, or None for host work) over
-    :func:`inputs`."""
+    :func:`inputs`; kernel A's backward also in its halo-only variant
+    (``_halo``: clusters of one block) where the package has it."""
     from megatts2_tpu_torch.ops import attention as att
     from megatts2_tpu_torch.ops import mel
 
@@ -138,13 +162,19 @@ def cases(x: dict) -> dict[str, tuple[Callable, Optional[str]]]:
     class Counter:  # _tma_ready's wrapper argument; never counts here
         layout_copies = 0
 
+    bwd = {}
+    for key in ("mel_bwd", "mel_bwd_16"):
+        bwd[key] = (functools.partial(mel.mel_spectrogram_bwd_cuda, *x[key]), "mel_bwd")
+        if hasattr(mel, "bwd_plan"):  # the one-launch design takes a cluster size
+            bwd[f"{key}_halo"] = (functools.partial(mel.mel_spectrogram_bwd_cuda, *x[key], cluster=1),
+                                  "mel_bwd")
     return {
         "flash_mrte": (lambda: att.flash_attention_cuda(q, k, v, lens), "flash"),
         "flash_mrte_simt": (lambda: att.flash_attention_cuda(q, k, v, lens, simt=True), "flash"),
         "tma_check": (lambda: [att._tma_ready(t, Counter) for t in (q, k, v)], None),
         "mel": (lambda: mel.mel_spectrogram_cuda(x["mel"]), "mel"),
         "mel_prompt": (lambda: mel.mel_spectrogram_cuda(x["mel_prompt"]), "mel"),
-        "mel_bwd": (lambda: mel.mel_spectrogram_bwd_cuda(*x["mel_bwd"]), "mel_bwd"),
+        **bwd,
         "flash_plm": (lambda: att.flash_attention_cuda(pq, pk, pv, plens, True, return_stats=True),
                       "flash"),
         "flash_bwd_plm": (lambda: att.flash_attention_bwd_cuda(pq, pk, pv, plens, True, pg, m, l),

@@ -358,17 +358,27 @@ def test_mel_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
 
 
-# the training path's (8, 16384), with the trainer's [:, :64] slice, and
-# the signals of the forward's checks
-MEL_BWD_SHAPES = [((8, 16384), 64), ((8, 16384), None), ((1, 513), None), ((3, 777), None),
-                  ((8, 131000), None)]
+# the training path's (8, 16384) and the shipped config's (16, 16384), with
+# the trainer's [:, :64] slice and whole; the signals of the forward's
+# checks; the block plan's edges (ops/mel.py::bwd_plan): rows of 5 frames
+# (shorter than a block), 7 and 28 frames (the block before the last gives
+# up one), 24 (one whole cluster), 25 (the last block a cluster's first,
+# giving up one), 66
+MEL_BWD_SHAPES = [((8, 16384), 64), ((8, 16384), None), ((16, 16384), 64), ((16, 16384), None),
+                  ((1, 513), None), ((3, 777), None), ((8, 131000), None), ((2, 1024), None),
+                  ((2, 1025), None), ((2, 1279), None), ((2, 1536), None), ((3, 5888), None),
+                  ((2, 6144), None), ((2, 6912), None), ((2, 16640), None)]
 
 
 @pytest.mark.parametrize("shape,keep", MEL_BWD_SHAPES)
 def test_mel_backward_kernel_matches_plain(cuda, shape, keep):
     """Kernel A's backward against autograd through the plain mel, within
     1e-4 of the gradient's largest magnitude (the FFTs and sums in other
-    orders; log's 1/mel amplifies where a mel is small)."""
+    orders; log's 1/mel amplifies where a mel is small); one device kernel
+    a call; a second call, and the halo-only variant (clusters of one
+    block), give the same bits."""
+    from megatts2_tpu_torch.tools.kernel_times import device_kernels
+
     g = torch.Generator().manual_seed(3)
     y = (torch.randn(shape, generator=g) * 0.1).to(cuda)
     T = tmel.num_frames(shape[-1])
@@ -382,6 +392,10 @@ def test_mel_backward_kernel_matches_plain(cuda, shape, keep):
     ref = tmel.mel_spectrogram_bwd_plain(y, g_mel)
     assert got.shape == ref.shape == y.shape
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    names = device_kernels(lambda: tmel.mel_spectrogram_bwd_cuda(y, g_mel))
+    assert len(names) == 1 and "mel_bwd" in names[0], names
+    assert torch.equal(tmel.mel_spectrogram_bwd_cuda(y, g_mel), got)
+    assert torch.equal(tmel.mel_spectrogram_bwd_cuda(y, g_mel, cluster=1), got)
 
 
 def test_mel_records_a_grad_fn_that_launches_the_backward(cuda):
@@ -415,11 +429,33 @@ def test_mel_backward_on_silence_is_zero(cuda):
 
 def test_mel_backward_rejects_what_it_does_not_take(cuda):
     y = torch.zeros(2, 3000, device=cuda)
+    g_mel = torch.zeros(2, tmel.num_frames(3000), 80, device=cuda)
     with pytest.raises(ValueError, match="g_mel"):
         tmel.mel_spectrogram_bwd_cuda(y, torch.zeros(2, 5, 80, device=cuda))
+    with pytest.raises(ValueError, match="g_mel"):
+        tmel.mel_spectrogram_bwd_cuda(y, g_mel.cpu())
     with pytest.raises(ValueError, match="contiguous"):
-        tmel.mel_spectrogram_bwd_cuda(torch.zeros(3000, 2, device=cuda).t(),
-                                      torch.zeros(2, tmel.num_frames(3000), 80, device=cuda))
+        tmel.mel_spectrogram_bwd_cuda(torch.zeros(3000, 2, device=cuda).t(), g_mel)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tmel.mel_spectrogram_bwd_cuda(y.cpu(), g_mel)
+    with pytest.raises(ValueError, match="float32"):
+        tmel.mel_spectrogram_bwd_cuda(y.double(), g_mel)
+    with pytest.raises(ValueError, match="more than 512"):
+        tmel.mel_spectrogram_bwd_cuda(torch.zeros(2, 500, device=cuda), torch.zeros(2, 2, 80, device=cuda))
+    with pytest.raises(RuntimeError, match="mel backward kernel"):  # the launcher refuses clusters above 8
+        tmel.mel_spectrogram_bwd_cuda(y, g_mel, cluster=9)
+
+
+def test_mel_backward_takes_a_g_mel_of_another_type_or_layout(cuda):
+    """A bf16 or non-contiguous g_mel is copied to fp32 first: the same bits."""
+    g = torch.Generator().manual_seed(9)
+    y = (torch.randn(2, 3000, generator=g) * 0.1).to(cuda)
+    g_mel = torch.randn(2, tmel.num_frames(3000), 80, generator=g).to(cuda)
+    want = tmel.mel_spectrogram_bwd_cuda(y, g_mel.bfloat16().float())
+    assert torch.equal(tmel.mel_spectrogram_bwd_cuda(y, g_mel.bfloat16()), want)
+    strided = g_mel.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    assert torch.equal(tmel.mel_spectrogram_bwd_cuda(y, strided), tmel.mel_spectrogram_bwd_cuda(y, g_mel))
 
 
 def test_mel_kernel_launches_without_grad(cuda):

@@ -5,10 +5,11 @@ numpy.
 
 The CUDA kernel cannot run here; ``tests/test_torch_cuda.py`` holds it
 against the plain backward on the card.  What it computes is stated twice
-on this side: the bin table and the overlap-add gather it reads
-(``ops/mel.py`` ``bin_tasks``, ``fold_sources``, ``frames_covering``) and,
-below, its per-frame arithmetic written out in numpy with the forward's FFT
-plan run in the inverse direction.
+on this side: the bin table and the block, cluster and halo plan it
+follows (``ops/mel.py`` ``bin_tasks``, ``bwd_plan``; ``fold_sources`` and
+``frames_covering`` state the adjoint the plan must equal) and, below, its
+per-frame arithmetic written out in numpy with the forward's FFT plan run
+in the inverse direction.
 
 Tolerances, as fractions of the largest gradient magnitude: 1e-5 against
 JAX (both fp32, FFTs and sums in other orders; log's 1/mel amplifies where
@@ -16,6 +17,8 @@ a mel is small, far from the 1e-5 clamp on these signals) and 1e-5 for the
 numpy plan against the plain backward (a complex64 FFT in the kernel's
 order against pocketfft).
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -133,6 +136,153 @@ def test_fold_gather_is_the_adjoint_of_pad_and_frame(n):
     np.testing.assert_allclose(got, x.grad[0].numpy(), rtol=0, atol=1e-5)
 
 
+def _gather(gf, n):
+    """The adjoint as ``fold_sources`` and ``frames_covering`` state it, for
+    gradients ``gf`` (..., T, 1024): each sample's direct, then left, then
+    right position, each the sum of its covering frames in ascending order,
+    in gf's dtype."""
+    T = gf.shape[-2]
+    got = np.zeros(gf.shape[:-2] + (n,), gf.dtype)
+    for i, q in tmel.fold_sources(n):
+        t_lo, t_hi = tmel.frames_covering(q, T)
+        acc = np.zeros(gf.shape[:-2] + (len(i),), gf.dtype)
+        for di in range(4):  # at most 4 frames of hop 256 cover a position
+            t = t_lo + di
+            ok = t <= t_hi
+            acc[..., ok] += gf[..., t[ok], q[ok] - 256 * t[ok]]
+        got[..., i] += acc
+    return got
+
+
+def _run_bwd_plan(gf, n, cluster=tmel.BWD_CLUSTER):
+    """The kernel's overlap-add and folds as ``bwd_plan`` lays them out, in
+    numpy, in the kernel's order and in gf's dtype: each block sees only the
+    frames it computes (and a peer's carry), writes only its samples, and
+    every sample is written once."""
+    T = gf.shape[-2]
+    lead = gf.shape[:-2]
+    blocks = tmel.bwd_plan(n, cluster)
+    assert len(blocks) == tmel.bwd_clusters(T, cluster) * cluster
+
+    def computed(blk, t):
+        assert blk["first"] <= t < blk["first"] + tmel.BWD_FRAMES and 0 <= t < T, (blk, t)
+        return gf[..., t, :]
+
+    def partial(blk, s):  # slots s .. s + 2 from frames s - 3 .. s - 1, ascending
+        out = np.zeros(lead + (3, 256), gf.dtype)
+        for k in range(3):
+            for t in range(max(0, s + k - 3), s):
+                out[..., k, :] += computed(blk, t)[..., 256 * (s + k - t):256 * (s + k - t + 1)]
+        return out
+
+    carry_out = [partial(b, b["own"][1]) if b["own"][0] < b["own"][1] < T else None for b in blocks]
+    out = np.full(lead + (n,), np.nan, gf.dtype)
+    for j, blk in enumerate(blocks):
+        lo, hi = blk["own"]
+        if lo >= T:
+            assert blk["samples"][0] == blk["samples"][1]
+            continue
+        if blk["carry"] == "peer":
+            assert j % cluster and carry_out[j - 1] is not None  # a peer of its cluster
+            carry = carry_out[j - 1]
+        elif blk["carry"] == "halo":
+            carry = partial(blk, lo)
+        else:
+            carry = np.zeros(lead + (3, 256), gf.dtype)
+        s_lo, s_hi = blk["slots"]
+
+        def padded(q):
+            h = q // 256
+            assert ((h >= s_lo) & ((h < s_hi) | (h >= T + 3))).all(), (blk, q)
+            acc = np.where(h < lo + 3, carry[..., np.minimum(h - lo, 2), q % 256], 0).astype(gf.dtype)
+            for t in range(lo, min(s_hi, T)):
+                ok = (h - 3 <= t) & (t <= h)
+                acc += np.where(ok, computed(blk, t)[..., np.clip(q - 256 * t, 0, 1023)], 0)
+            return acc
+
+        i = np.arange(*blk["samples"])
+        assert np.isnan(out[..., i]).all()  # written once
+        acc = padded(i + 512)
+        left, right = (i >= 1) & (i <= 512), (i <= n - 2) & (i >= n - 513)
+        acc[..., left] += padded(512 - i[left])
+        acc[..., right] += padded(2 * (n - 1) - i[right] + 512)
+        out[..., i] = acc
+    assert not np.isnan(out).any()  # every sample written
+    return out
+
+
+BWD_LENGTHS = [513, 777, 1024, 1025, 1279, 1536, 6144, 16384, 16640, 131000]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", BWD_LENGTHS)
+def test_bwd_plan_is_the_adjoint_of_pad_and_frame(n, cluster):
+    """The block plan summed over integer gradients (exact in float64, in
+    any order) equals autograd's adjoint of reflect-pad and unfold.  n 513
+    (3 frames) to 1279 (5) are rows shorter than one block; 1536 (7 frames)
+    and 6144 (25, at a cluster's edge) make the block before the last give
+    up a frame; 16384 (65) and 16640 (66) are the trainer's crops, T a
+    multiple of neither the block nor the cluster; 131000 (512) the batched
+    front end; cluster 1 is the halo-only variant."""
+    T = tmel.num_frames(n)
+    gf = np.random.RandomState(n % 1000 + cluster).randint(-1000, 1000, (T, 1024)).astype(np.float64)
+    x = torch.zeros(1, n, dtype=torch.float64, requires_grad=True)
+    tmel.frame_signal(x, 1024, 256).backward(torch.from_numpy(gf)[None])
+    got = _run_bwd_plan(gf, n, cluster=cluster)
+    assert np.array_equal(got, x.grad[0].numpy())
+    assert np.array_equal(got, _gather(gf, n))
+
+
+@pytest.mark.parametrize("n", BWD_LENGTHS)
+def test_bwd_plan_gives_the_bits_of_the_gather_at_every_cluster_size(n):
+    """In fp32 the plan's sums (the carry, then the owned frames, ascending;
+    then the reflected partners) are the gather's, term for term: the same
+    bits at cluster sizes 1, 2, 4 and 8 and as ``fold_sources`` states."""
+    gf = _cotangent((2, tmel.num_frames(n), 1024), 11)
+    want = _gather(gf, n)
+    for cluster in (1, 2, 4, 8):
+        got = _run_bwd_plan(gf, n, cluster=cluster)
+        assert got.dtype == np.float32 and np.array_equal(got, want), cluster
+
+
+def test_bwd_table_holds_each_table_at_its_offset():
+    """The backward's one table (what each block copies into shared memory)
+    holds the forward's and the backward's tables at the offsets the kernel
+    reads (csrc/mel.cu TB_*), ints as their bits, padded to 16 bytes."""
+    t = tmel.bwd_table(80, torch.device("cpu")).numpy()
+    fb = tmel.mel_filterbank()
+    tasks, weights = tmel.filterbank_tasks(fb)
+    mels, bin_weights = tmel.bin_tasks(fb)
+    tw = tmel.kernel_twiddles()
+    at = {"window": 0, "tw": tmel.BWD_TABLE_TW, "mels": tmel.BWD_TABLE_BIN_MELS,
+          "bin_weights": tmel.BWD_TABLE_BIN_WEIGHTS, "tasks": tmel.BWD_TABLE_TASKS}
+    assert np.array_equal(t[:1024], tmel.padded_window(1024, 1024))
+    assert np.array_equal(t[at["tw"]:at["mels"]].reshape(-1, 2), np.stack([tw.real, tw.imag], 1))
+    assert np.array_equal(t[at["mels"]:at["mels"] + 1026].view(np.int32).reshape(-1, 2), mels)
+    assert np.array_equal(t[at["bin_weights"]:at["bin_weights"] + 1026].reshape(-1, 2), bin_weights)
+    w0 = at["tasks"] + tasks.size
+    assert np.array_equal(t[at["tasks"]:w0].view(np.int32).reshape(-1, 4), tasks)
+    assert np.array_equal(t[w0:w0 + weights.size].reshape(weights.shape), weights)
+    assert len(t) % 4 == 0 and not t[w0 + weights.size:].any() and at["tasks"] % 4 == 0
+
+
+def test_bwd_plan_blocks():
+    """The grid at the trainer's (., 16384): 3 clusters of 4 a row, every
+    block 6 frames, the cluster-first blocks 3 of them a halo; the row's
+    first block owns slots 0-4 and the last slots T - 2 .. T + 2."""
+    blocks = tmel.bwd_plan(16384)
+    assert len(blocks) == 12
+    assert [b["own"] for b in blocks] == [(0, 6), (6, 12), (12, 18), (18, 24), (24, 27), (27, 33),
+                                          (33, 39), (39, 45), (45, 48), (48, 54), (54, 60), (60, 65)]
+    assert [b["carry"] for b in blocks[:5]] == ["none", "peer", "peer", "peer", "halo"]
+    assert blocks[4]["first"] == 21 and blocks[-1]["slots"] == (60, 68)
+    short = tmel.bwd_plan(1536)  # 7 frames: the first gives up its 6th
+    assert [b["own"] for b in short[:2]] == [(0, 5), (5, 7)] and short[1]["slots"] == (5, 10)
+    assert tmel.bwd_clusters(65, 1) == 21 and tmel.bwd_clusters(24, 4) == 1
+    with pytest.raises(ValueError, match="clusters of 1-8"):
+        tmel.bwd_plan(16384, cluster=9)
+
+
 def _kernel_backward_frames(frames, g_mel):
     """The backward kernel's first launch in numpy: per windowed frame
     (..., 1024), recompute X through the forward's plan (``_run_fft_plan``
@@ -171,20 +321,14 @@ def _kernel_backward_frames(frames, g_mel):
 
 @pytest.mark.parametrize("n", [777, 4000])
 def test_backward_kernel_plan_in_numpy(n):
-    """The first launch's arithmetic, then the gather, in numpy, against
-    the plain backward."""
+    """Each frame's arithmetic, then the block plan's overlap-add and folds,
+    in numpy, against the plain backward."""
     y = _signal((2, n), 8)
     T = tmel.num_frames(n)
     g = _cotangent((2, T, 80), 9)
     frames = tmel.frame_signal(torch.from_numpy(y), 1024, 256).numpy()
     gf = _kernel_backward_frames(frames.astype(np.float32), g)
-    got = np.zeros((2, n), np.float64)
-    for i, q in tmel.fold_sources(n):
-        t_lo, t_hi = tmel.frames_covering(q, T)
-        for di in range(4):
-            t = t_lo + di
-            ok = t <= t_hi
-            got[:, i[ok]] += gf[:, t[ok], q[ok] - 256 * t[ok]]
+    got = _run_bwd_plan(gf, n)
     want = tmel.mel_spectrogram_bwd_plain(torch.from_numpy(y), torch.from_numpy(g)).numpy()
     _assert_rel(got, want, REL)
 
@@ -194,3 +338,17 @@ def test_backward_plan_gives_zero_on_silence():
     frames = np.zeros((3, 1024), np.float32)
     gf = _kernel_backward_frames(frames, _cotangent((3, 80), 10))
     assert np.array_equal(gf, np.zeros_like(gf))
+
+
+def test_stage_tool_names_each_stamp_of_the_kernel():
+    """``tools/mel_bwd_stages.py`` names one stage for each clock stamp the
+    kernel writes under ``-DMEL_BWD_STAGES`` (0, the block's start, then 1 ..
+    13 in order), and without a card it refuses to run."""
+    from megatts2_tpu_torch.csrc.build import CSRC
+    from megatts2_tpu_torch.tools import mel_bwd_stages
+
+    stamps = [int(k) for k in re.findall(r"STAGE(?:_SYNC)?\((\d+)\);", (CSRC / "mel.cu").read_text())]
+    assert stamps == list(range(len(mel_bwd_stages.STAGES) + 1))
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA device"):
+            mel_bwd_stages.main([])
