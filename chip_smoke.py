@@ -192,6 +192,35 @@ Added for the measurement tools (run after the pipeline):
    finite and every rate positive; every line names the card and its
    power limit.
 
+Added for the quality tools (run after the tools):
+
+17. quality — the six quality tools of ``megatts2_tpu_torch/tools``
+   through their ``main(argv)`` on the card at full width (the shipped
+   ``configs/config_{gan,plm,adm,vocoder}.yaml``; only the steps are few),
+   every counter set to 0 before each and read after, each tool's stdout
+   printed under ``quality <tool>:`` with its wall and launches:
+   ``train_curve --stages gan,vocoder,plm,adm`` on its 2 x 8 corpus (4
+   steps a stage, one validation and one checkpoint each; stage 2 from the
+   GAN's checkpoint; A and its backward in the vocoder fit, B and C on the
+   tensor cores in the PLM fit), ``e2e_quality`` on that stack, float and
+   ``--quant_int8`` (A for the mels, B on the tensor cores in the prompt
+   prefill), ``quality_table`` of the two records, ``int8_margins
+   --n_batches 2`` (B on the tensor cores), ``at_scale_stack`` on a 4 x 12
+   corpus with ``--g_ema_decay 0.999`` (A in stage 1; its fits and stage 2
+   are subprocesses, each launched once with rc 0), then its stage 2's
+   stored latents against the best GAN checkpoint's ``g_ema`` weights and
+   its raw weights on the same batch (the EMA's within ``ATOL_EMA_LATENT``
+   and ten times closer than the raw ones), and ``heldout_eval --n_speakers 2 --n_seeds 1`` on
+   that stack (disjoint bands at 75 and 92 Hz, tolerance 0.08).  Every
+   record has the JAX tool's keys and names the card; its numbers are
+   finite, but for the MCD of a tail of 8 frames or fewer (NaN, as in
+   JAX).  As in "pipeline", every launch signature of A, A's backward, B
+   and C in this process is recorded and then held against the plain
+   version ("quality shapes ..." lines, worst error into the ``kernels``
+   line, whose launches gain the phase's under ``quality <tool>``), and
+   ``train_curve``'s stage 1 features against the plain mel.  The phase's
+   directory (checkpoints of up to 2.3 GiB) is removed at its end.
+
 Each phase's seconds are printed.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -2480,6 +2509,15 @@ TOOLS_LOADER_BATCHES, TOOLS_GAN_STEPS, TOOLS_LM_STEPS = 10, 4, 2
 LONG_STEPS, LONG_VAL, LONG_KILL = 10, 4, 6
 
 
+def _numbers(x, skip=()) -> list:
+    """The numbers in a record, but for those under a key in ``skip``."""
+    if isinstance(x, dict):
+        return [v for k, val in x.items() if k not in skip for v in _numbers(val, skip)]
+    if isinstance(x, (list, tuple)):
+        return [v for val in x for v in _numbers(val, skip)]
+    return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+
 def _tool(label: str, card: str, fn, *args, carded: bool = True, **kwargs) -> tuple:
     """``fn(*args, emit=..., **kwargs)`` with every kernel counter at 0: its
     JSON lines printed under ``label`` and parsed; every number in them
@@ -2500,14 +2538,7 @@ def _tool(label: str, card: str, fn, *args, carded: bool = True, **kwargs) -> tu
     print(f"tools {label}: {time.perf_counter() - t0:.1f} s, launches A {n['A']} A_bwd {n['A_bwd']} "
           f"B {n['B']} (tensor cores {n['B_tc']}) C {n['C']} (tensor cores {n['C_tc']}) [{card}]")
 
-    def numbers(x):
-        if isinstance(x, dict):
-            return [v for val in x.values() for v in numbers(val)]
-        if isinstance(x, (list, tuple)):
-            return [v for val in x for v in numbers(val)]
-        return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
-
-    check(lines and all(np.isfinite(v) for rec in lines for v in numbers(rec)),
+    check(lines and all(np.isfinite(v) for rec in lines for v in _numbers(rec)),
           f"tools {label}: records {lines}")
     check(not carded or all(rec.get("device", rec.get("detail", {}).get("device")) == card
                             for rec in lines),
@@ -2622,6 +2653,208 @@ def phase_tools(dev: torch.device, card: str, root: str, err: dict) -> dict:
     return launches
 
 
+# the quality phase: train_curve's steps a stage and validation interval
+# (one validation and one checkpoint a stage), its corpus of 2 x 8;
+# at_scale_stack's 4 x 12 corpus and its steps a stage (gan, plm, adm, vocoder)
+QUAL_STEPS, QUAL_UTT = 4, 8
+STACK_SPK, STACK_UTT, STACK_STEPS = 4, 12, (4, 2, 2, 2)
+# stage 2's stored latents (its own process) against the same batch here:
+# cuDNN may pick other fp32 convolution algorithms in another process, and
+# its default TF32 rounds their products to 10-bit mantissas (seen on an
+# H100: 1.9e-3 and 2.2e-3); the raw weights after 4 steps were 0.18-0.27 off
+ATOL_EMA_LATENT = 1e-2
+# each tool's record: the JAX tool's keys, and the card's name under "device"
+QUAL_KEYS = {
+    "train_curve": {"corpus", "steps", "gan", "vocoder", "plm", "adm"},
+    "e2e_quality": {"root", "text", "plm_decode", "speaker_f0_hz", "speakers", "n_speakers",
+                    "timbre_classification_acc", "mcd_db_mean", "duration_mae_frames_mean",
+                    "prompted_in_band_frac", "prompted_differs_frac", "timbre_transfer_ok",
+                    "timbre_transfer_ok_threshold"},
+    "int8_margins": {"ckpt", "positions", "batches", "margin_logits", "int8_perturbation_logits",
+                     "teacher_forced_argmax_agreement", "at_risk_fraction_p99",
+                     "at_risk_fraction_2x_p99"},
+    "at_scale_stack": {"phase", "total_wall_s", "gan", "plm", "adm", "vocoder"},
+    "heldout_eval": {"mode", "train_root", "heldout_root", "design", "speaker_f0_hz", "ckpts",
+                     "ceiling_gt_codes", "greedy", "sampled", "duration_mae_frames", "rows",
+                     "wall_s"},
+}
+
+
+def _quality_tool(label: str, card: str, main, argv: list) -> tuple:
+    """``main(argv)`` with every kernel counter at 0 and its standard output
+    captured: each line printed under ``label``, the JSON ones parsed; then
+    its wall and launches.  Returns (main's result, the JSON lines, the
+    launches, the wall)."""
+    import contextlib
+    import io
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _launches()
+    recs = []
+    for line in buf.getvalue().splitlines():
+        print(f"quality {label}: {line}")
+        if line.startswith("{"):
+            recs.append(json.loads(line))
+    print(f"quality {label}: wall {wall:.1f} s, launches A {n['A']} A_bwd {n['A_bwd']} B {n['B']} "
+          f"(tensor cores {n['B_tc']}) C {n['C']} (tensor cores {n['C_tc']}) [{card}]")
+    torch.cuda.empty_cache()
+    return out, recs, n, wall
+
+
+def _check_quality_record(tool: str, rec: dict, card: str, nan_ok: tuple = ()) -> None:
+    """The JAX tool's keys, the card named, every number finite (but those
+    under ``nan_ok`` keys)."""
+    check(set(rec) == QUAL_KEYS[tool] | {"device"} and rec["device"] == card,
+          f"quality {tool}: keys {sorted(rec)} against the JAX tool's {sorted(QUAL_KEYS[tool])}")
+    bad = [v for v in _numbers(rec, nan_ok) if not np.isfinite(v)]
+    check(not bad, f"quality {tool}: numbers not finite {bad} in {rec}")
+
+
+def _check_ema_latents(dev: torch.device, stack: str, card: str) -> None:
+    """Stage 2 of ``at_scale_stack`` ran from the EMA generator: its first
+    batch's stored latents against the best GAN checkpoint's ``g_ema``
+    weights (loaded here by ``load_state_dict``, not by the loader) and its
+    raw weights, on the same batch on the card."""
+    from megatts2_tpu_torch.config import load_gan_config
+    from megatts2_tpu_torch.data import CutManifest, GANBatchBuilder
+    from megatts2_tpu_torch.models import MegaG
+    from megatts2_tpu_torch.prepare_ds import LATENT_BATCH
+    from megatts2_tpu_torch.training.checkpoints import (best_checkpoint, load_model_state_dict,
+                                                         read_checkpoint)
+
+    ds = os.path.join(stack, "ds")
+    obj = read_checkpoint(best_checkpoint(os.path.join(stack, "ckpts50k", "gan")))
+    g_cfg = load_gan_config(os.path.join(stack, "gan50k.yaml"))[0]
+    raw = load_model_state_dict(MegaG(g_cfg), obj["state_dict"]).to(dev).eval()
+    ema = load_model_state_dict(MegaG(g_cfg), obj["state_dict"])
+    missing, unexpected = ema.load_state_dict(obj["g_ema"], strict=False)
+    ema = ema.to(dev).eval()
+    check(not unexpected and not set(missing) & set(dict(ema.named_parameters())),
+          f"quality at_scale_stack: g_ema does not name G's parameters: {unexpected}, {missing}")
+    moved = sum(not torch.equal(obj["g_ema"][n], p.cpu()) for n, p in raw.named_parameters())
+    cuts = CutManifest.load(os.path.join(ds, "cuts_train.jsonl.gz"))
+    cuts.cuts.extend(CutManifest.load(os.path.join(ds, "cuts_valid.jsonl.gz")).cuts)
+    idxs = sorted(range(len(cuts)), key=lambda i: cuts[i].num_frames)[:LATENT_BATCH]
+    b = GANBatchBuilder(cuts, ds)(idxs)
+    args = (torch.from_numpy(b["phone_tokens"]).long().to(dev), torch.from_numpy(b["tokens_lens"]).to(dev),
+            torch.from_numpy(b["mel_timbres"]).float().to(dev),
+            torch.from_numpy(b["mel_targets"]).float().to(dev))
+    with torch.no_grad():
+        tc_ema, tc_raw = ema.s2_latent(*args)[0].cpu().numpy(), raw.s2_latent(*args)[0].cpu().numpy()
+    err_ema = err_raw = 0.0
+    for row, i in enumerate(idxs):
+        lat = np.load(os.path.join(ds, "latents", cuts[i].speaker, f"{cuts[i].id}.npy"),
+                      allow_pickle=True).item()["tc_latent"][0]
+        tl = int(b["tokens_lens"][row])
+        err_ema = max(err_ema, float(np.abs(lat - tc_ema[row, :tl]).max()))
+        err_raw = max(err_raw, float(np.abs(lat - tc_raw[row, :tl]).max()))
+    check(moved > 0 and err_ema <= ATOL_EMA_LATENT and 10 * err_ema < err_raw,
+          f"quality at_scale_stack: stage 2's latents {err_ema} from g_ema's, {err_raw} from the raw "
+          f"G's ({moved} parameters differ)")
+    print(f"quality at_scale_stack stage 2: {len(idxs)} cuts' latents against the checkpoint's g_ema "
+          f"weights max_abs_err {err_ema:.3g} (atol {ATOL_EMA_LATENT}), against its raw weights "
+          f"{err_raw:.3g} ({moved} of {len(obj['g_ema'])} parameters differ) [{card}]")
+
+
+def phase_quality(dev: torch.device, card: str, root: str, err: dict) -> dict:
+    """The six quality tools of ``megatts2_tpu_torch/tools`` through their
+    ``main(argv)`` on the card at full width (the shipped configs): in this
+    process ``train_curve`` trains every stage (QUAL_STEPS steps) on its 2 x
+    QUAL_UTT corpus, ``e2e_quality`` (float and int8) and ``quality_table``
+    measure that stack, ``int8_margins`` its PLM; ``at_scale_stack`` trains
+    a stack on a STACK_SPK x STACK_UTT corpus with the EMA generator (fits
+    and stage 2 as subprocesses) and ``heldout_eval`` evaluates it on two
+    held-out speakers.  Every record has the JAX tool's keys and finite
+    numbers; stage 2 of the stack read the EMA generator.  As in the
+    pipeline phase, every launch signature of kernels A, B and C in this
+    process is recorded and, after the tools, held against the plain
+    version (its worst error folded into ``err``).  Returns each tool's
+    launches."""
+    import shutil
+
+    from megatts2_tpu_torch.tools import (at_scale_stack, e2e_quality, heldout_eval, int8_margins,
+                                          quality_table, train_curve)
+
+    base = os.path.join(root, "quality")
+    curve, stack = os.path.join(base, "curve"), os.path.join(base, "stack")
+    launches, walls = {}, {}
+    wrappers = _path_wrappers()
+    for fn in wrappers.values():
+        fn.shapes = set()
+
+    steps = str(QUAL_STEPS)
+    rec, recs, launches["train_curve"], walls["train_curve"] = _quality_tool(
+        "train_curve", card, train_curve.main,
+        ["--stages", "gan,vocoder,plm,adm", "--steps", steps, "--lm_steps", steps,
+         "--val_every", steps, "--n_per_spk", str(QUAL_UTT), "--root", curve])
+    _check_quality_record("train_curve", rec, card)
+    check(rec["gan"]["val/loss_re"][0][0] == QUAL_STEPS and rec["plm"]["val/ac10"][0][0] == QUAL_STEPS,
+          f"quality train_curve: {rec}")
+    reports = []
+    for extra in ([], ["--quant_int8"]):
+        label = "e2e_quality" + (" int8" if extra else "")
+        rec, _, launches[label], walls[label] = _quality_tool(
+            label, card, e2e_quality.main, ["--root", curve, *extra])
+        # the MCD of a tail of 8 frames or fewer is NaN, as in JAX: an ADM of
+        # QUAL_STEPS steps may give a frame a phone
+        _check_quality_record("e2e_quality", rec, card, nan_ok=("mcd_db", "mcd_db_mean"))
+        check(rec["n_speakers"] == 2, f"quality {label}: {rec['n_speakers']} speakers")
+        reports.append(os.path.join(base, f"{rec['plm_decode']}.json"))
+        with open(reports[-1], "w") as f:
+            json.dump(rec, f)
+    _, _, launches["quality_table"], walls["quality_table"] = _quality_tool(
+        "quality_table", card, quality_table.main, reports)
+    rec, _, launches["int8_margins"], walls["int8_margins"] = _quality_tool(
+        "int8_margins", card, int8_margins.main, ["--train_root", curve, "--n_batches", "2"])
+    _check_quality_record("int8_margins", rec, card)
+    check(rec["positions"] > 0 and 0 <= rec["teacher_forced_argmax_agreement"] <= 1,
+          f"quality int8_margins: {rec}")
+
+    gan_s, plm_s, adm_s, voc_s = map(str, STACK_STEPS)
+    rec, recs, launches["at_scale_stack"], walls["at_scale_stack"] = _quality_tool(
+        "at_scale_stack", card, at_scale_stack.main,
+        ["--root", stack, "--n_speakers", str(STACK_SPK), "--n_per_spk", str(STACK_UTT),
+         "--gan_steps", gan_s, "--plm_steps", plm_s, "--adm_steps", adm_s, "--voc_steps", voc_s,
+         "--g_ema_decay", "0.999"])
+    _check_quality_record("at_scale_stack", rec, card)
+    fits = [r for r in recs if r.get("phase", "").endswith("_launch") or r.get("phase") == "stage2"]
+    check([r["rc"] for r in fits] == [0] * 5, f"quality at_scale_stack: launches {fits}")
+    _check_ema_latents(dev, stack, card)
+    rec, _, launches["heldout_eval"], walls["heldout_eval"] = _quality_tool(
+        "heldout_eval", card, heldout_eval.main,
+        ["--train_root", stack, "--ckpt_root", os.path.join(stack, "ckpts50k"), "--gan_config",
+         os.path.join(stack, "gan50k.yaml"), "--out", os.path.join(base, "heldout"),
+         "--n_speakers", "2", "--n_seeds", "1"])
+    # a tail of 8 frames or fewer has no MCD, as in JAX
+    _check_quality_record("heldout_eval", rec, card, nan_ok=("mcd_db",))
+    check(len(rec["rows"]) == 2 * len(heldout_eval.TEXTS) * 2, f"quality heldout_eval: {rec['rows']}")
+
+    n = launches
+    check(n["train_curve"]["A"] > 0 and n["train_curve"]["A_bwd"] > 0
+          and n["train_curve"]["B_tc"] > 0 and n["train_curve"]["C_tc"] > 0,
+          f"quality train_curve: A, A's backward (vocoder fit), B and C (PLM fit) {n['train_curve']}")
+    for label in ("e2e_quality", "e2e_quality int8", "heldout_eval"):
+        check(n[label]["A"] > 0 and n[label]["B_tc"] > 0,
+              f"quality {label}: A (mels) and B on the tensor cores (the prompt prefill) {n[label]}")
+    check(n["int8_margins"]["B_tc"] > 0, f"quality int8_margins: B on the tensor cores {n['int8_margins']}")
+    check(n["at_scale_stack"]["A"] > 0, f"quality at_scale_stack: A (stage 1) {n['at_scale_stack']}")
+    print("quality walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f" [{card}]")
+    shapes = {name: fn.shapes for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.shapes = None
+    _check_stage1_features(dev, os.path.join(curve, "ds"), card, "quality")
+    _check_path_shapes(dev, shapes, err, card, "quality")
+    shutil.rmtree(base)
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2651,6 +2884,7 @@ def main() -> None:
         vocoder = _timed("vocoder train", phase_vocoder_train, dev, card, root)
         pipeline = _timed("pipeline", phase_pipeline, dev, card, root, k["err"])
         tools = _timed("tools", phase_tools, dev, card, root, k["err"])
+        quality = _timed("quality", phase_quality, dev, card, root, k["err"])
     adm = train["adm_flash"]
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
     served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
@@ -2659,9 +2893,10 @@ def main() -> None:
         return None if us is None else us / 1e3
 
     def piped(key):
-        """(launches, by step) of the pipeline and tools phases for one counter."""
+        """(launches, by step) of the pipeline, tools and quality phases for one counter."""
         by = {f"pipeline {label}": n[key] for label, n in pipeline.items() if n[key]}
         by.update({f"tools {label}": n[key] for label, n in tools.items() if n[key]})
+        by.update({f"quality {label}": n[key] for label, n in quality.items() if n[key]})
         return sum(by.values()), by
 
     def wide(key):

@@ -288,6 +288,32 @@ def yaml_load(text: str) -> Any:
     return value
 
 
+def _yaml_scalar(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if v is None:
+        return "null"
+    if isinstance(v, float):
+        text = repr(v)
+        # the reader, as PyYAML's resolver, takes a float only with a dot
+        return text if "." in text else re.sub(r"^(-?\d+)", r"\1.0", text)
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+    return str(v)
+
+
+def yaml_dump(d: dict, indent: int = 0) -> str:
+    """Nested mappings of scalars and flow lists as block YAML, in the subset
+    that :func:`yaml_load` reads back to the same values."""
+    out = ""
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out += f"{' ' * indent}{k}:\n" + yaml_dump(v, indent + 2)
+        else:
+            out += f"{' ' * indent}{k}: {_yaml_scalar(v)}\n"
+    return out
+
+
 def _block(lines: list, i: int, indent: int):
     """The mapping or list whose entries start at ``lines[i]`` with this
     indentation; returns it and the index of the first line after it."""

@@ -6,7 +6,10 @@ reference Lightning checkpoint or one the port wrote
 ``G.``, ``D.``, ``plm.``, ``adm.``; or a directory of the port's
 ``step_*.ckpt`` files, whose latest is read.  The JAX trainers' orbax
 directories are read by the JAX package only: the port raises on one.
-Each returns ``(cfg, module)``, the module on the CPU in fp32.
+Each returns ``(cfg, module)``, the module on the CPU in fp32.  A GAN
+train state that holds an EMA generator (``g_ema``, trained with
+``g_ema_decay`` > 0) gives that generator, as JAX's
+``load_generator_from_orbax`` does.
 """
 from __future__ import annotations
 
@@ -44,10 +47,23 @@ def _load(module: nn.Module, ckpt: str) -> nn.Module:
 
 
 def megag_from_pretrained(ckpt: str, config: str) -> Tuple[MegaGConfig, nn.Module]:
+    """(cfg, MegaG) from ``state_dict``; when the checkpoint holds ``g_ema``
+    (a GAN train state with ``g_ema_decay`` > 0), each parameter it names
+    takes its EMA value, and the buffers (the codebook and its statistics)
+    stay those of ``state_dict``, as JAX pairs ``g_ema`` with ``vq_stats``.
+    Validation and top-k selection score those weights."""
     from .megag import MegaG
 
     g_cfg, _, _ = load_gan_config(config)
-    return g_cfg, _load(MegaG(g_cfg), ckpt)
+    obj = read_checkpoint(_ckpt_file(ckpt))
+    g = load_model_state_dict(MegaG(g_cfg), obj.get("state_dict", obj)).eval()
+    ema = obj.get("g_ema")
+    if ema:
+        params = dict(g.named_parameters())
+        with torch.no_grad():
+            for name, value in ema.items():
+                params[name].copy_(value)
+    return g_cfg, g
 
 
 def discriminator_from_pretrained(ckpt: str, config: str):

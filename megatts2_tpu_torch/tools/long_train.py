@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import signal
 import subprocess
 import sys
@@ -32,6 +31,7 @@ import time
 from pathlib import Path
 from typing import Callable, Optional
 
+from ..config import yaml_dump
 from ..training.lm_trainers import train_device
 from .bw_ceiling import card_name
 
@@ -49,32 +49,6 @@ def prep(root: str, device="cuda", workers: int = 4) -> str:
     prep_main(["--stage", "1", "--wavtxt_path", wavs, "--text_grid_path", tgs, "--ds_path", ds,
                "--num_workers", str(workers), "--device", str(device)])
     return ds
-
-
-def _yaml_scalar(v) -> str:
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if v is None:
-        return "null"
-    if isinstance(v, float):
-        text = repr(v)
-        # the reader, as PyYAML's resolver, takes a float only with a dot
-        return text if "." in text else re.sub(r"^(-?\d+)", r"\1.0", text)
-    if isinstance(v, (list, tuple)):
-        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
-    return str(v)
-
-
-def yaml_dump(d: dict, indent: int = 0) -> str:
-    """Nested mappings of scalars and flow lists as block YAML, in the subset
-    that ``config.yaml_load`` reads back to the same values."""
-    out = ""
-    for k, v in d.items():
-        if isinstance(v, dict):
-            out += f"{' ' * indent}{k}:\n" + yaml_dump(v, indent + 2)
-        else:
-            out += f"{' ' * indent}{k}: {_yaml_scalar(v)}\n"
-    return out
 
 
 def write_config(root: str, ds: str, steps: int, val_every: int, shipped: str = str(SHIPPED),

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def load_wav(path: str, sr: int = 16000) -> np.ndarray:
@@ -24,6 +23,10 @@ def load_wav(path: str, sr: int = 16000) -> np.ndarray:
     else:
         data = data.astype(np.float32)
     if in_sr != sr:
+        # imported here: scipy.signal takes seconds to import, and every
+        # process of the pipeline (stage 0's workers, the fits) reads wavs
+        from scipy.signal import resample_poly
+
         g = np.gcd(in_sr, sr)
         data = resample_poly(data, sr // g, in_sr // g).astype(np.float32)
     return data

@@ -529,3 +529,31 @@ def test_wrappers_record_launch_shapes_only_when_asked(cuda):
     finally:
         for fn in fns:
             fn.shapes = None
+
+
+def test_generator_loader_reads_the_ema_weights_of_a_card_trained_state(cuda, tmp_path):
+    """A GAN train state on the card whose ``g_ema`` differs from G: the
+    loader gives the ``g_ema`` parameters and G's buffers (the codebook)."""
+    from megatts2_tpu_torch.config import load_gan_config
+    from megatts2_tpu_torch.models.pretrained import megag_from_pretrained
+    from megatts2_tpu_torch.training import create_gan_state
+    from megatts2_tpu_torch.training.checkpoints import save_checkpoint
+    from pipeline_fixtures import GAN_YAML
+
+    cfg = tmp_path / "gan.yaml"
+    cfg.write_text(GAN_YAML.format(steps=1, val=1, ds="unused").replace(
+        "trainer:\n", "trainer:\n  g_ema_decay: 0.9\n", 1))
+    state = create_gan_state(*load_gan_config(str(cfg)), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        state.g.vqpe.vq.layers[0]._codebook.embed.normal_(generator=gen)
+        state.g_ema = {n: p + 0.01 * torch.randn(p.shape, generator=gen, device=cuda)
+                       for n, p in state.g.named_parameters()}
+    path = save_checkpoint(str(tmp_path / "ck"), state, 1)
+    _, g = megag_from_pretrained(path, str(cfg))
+    g = g.to(cuda)
+    for name, p in g.named_parameters():
+        assert torch.equal(p, state.g_ema[name]), name
+    want = dict(state.g.named_buffers())
+    for name, b in g.named_buffers():
+        assert torch.equal(b, want[name]), name

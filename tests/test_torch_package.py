@@ -137,6 +137,10 @@ PIPELINE_MODULES = ["megatts2_tpu_torch." + m for m in (
 TOOLS_MODULES = ["megatts2_tpu_torch." + m for m in (
     "utils.flops", "tools.bench_train", "tools.profile_train", "tools.http_bench",
     "tools.bench_input_pipeline", "tools.long_train", "tools.long_run_summary")]
+# the quality tools, likewise
+QUALITY_MODULES = ["megatts2_tpu_torch.tools." + m for m in (
+    "train_curve", "e2e_quality", "quality_table", "int8_margins", "at_scale_stack",
+    "heldout_eval")]
 
 
 def test_port_imports_no_jax_flax_or_yaml():
@@ -151,7 +155,7 @@ def test_port_imports_no_jax_flax_or_yaml():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'yaml', 'megatts2_tpu'))\n"
         "assert len(names) > 20, names\n"
-        f"missing = sorted(set({SERVING_MODULES + PIPELINE_MODULES + TOOLS_MODULES!r}) - set(names))\n"
+        f"missing = sorted(set({SERVING_MODULES + PIPELINE_MODULES + TOOLS_MODULES + QUALITY_MODULES!r}) - set(names))\n"
         "assert not missing, missing\n"
         "assert not bad, bad\n"
     )
