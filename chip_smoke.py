@@ -221,6 +221,28 @@ Added for the quality tools (run after the tools):
    ``train_curve``'s stage 1 features against the plain mel.  The phase's
    directory (checkpoints of up to 2.3 GiB) is removed at its end.
 
+Added for data and tensor parallelism (run last):
+
+18. parallel — data and tensor parallelism (``megatts2_tpu_torch/parallel/``)
+   on the one card, on "pipeline"'s dataset; correctness runs, not
+   scaling: (a) ``torchrun --standalone --nproc_per_node 1`` (one NCCL
+   rank) fits the full-width PLM (``config_plm.yaml``) 3 steps with
+   ``--zero_opt`` and a checkpoint, then a plain process resumes it a
+   step; its losses against a plain process doing the same
+   (``PAR_RTOL_RUN``); (b) two ranks spawned over gloo
+   (``maybe_initialize_distributed(backend="gloo")``: NCCL refuses two
+   ranks on one device) take 2 steps of the full-width PLM in bf16 at (2,
+   1) with ZeRO-1 and at (1, 2), and of the full-width GAN in fp32 (its
+   first step's kmeans) at (2, 1), each against the one-process steps on
+   the same global batch: metrics (``PAR_RTOL_BF16``, ``PAR_ATOL_AC10``,
+   ``PAR_RTOL_FP32``), the weights' largest difference (AdamW's
+   ``PAR_ADAM`` lr bound) and mean, the codebook's and BatchNorms' buffers,
+   B and C launched on every PLM rank; (c) four ranks fit a
+   ``PAR_DEPTH``-layer PLM through ``cli fit --n_model 2``, a (2, 2) mesh,
+   against one process (the batch plans checked equal first).  Each run's
+   walls and step ms are printed with the card; the ranks' launches join
+   the ``kernels`` line under ``parallel ...``.
+
 Each phase's seconds are printed.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -230,6 +252,7 @@ the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -2855,6 +2878,486 @@ def phase_quality(dev: torch.device, card: str, root: str, err: dict) -> dict:
     return launches
 
 
+# the parallel phase: correctness runs of data and tensor parallelism on the
+# one card, over gloo (NCCL refuses two ranks on one device): they prove the
+# process groups and the collectives on CUDA tensors, not any scaling
+PAR_L, PAR_LENS = 256, [256, 256, 240, 200, 180, 128, 96, 32]  # the PLM batch (B=8)
+PAR_STEPS, PAR_LR = 2, 1e-4  # warmup 1: the first update has lr 0, the second moves the weights
+PAR_DEPTH, PAR_CUTS = 2, 8  # (c): the PLM's layers and max_n_cuts (batches split evenly)
+# a bf16 step on N ranks against one process: the ranks' GEMMs see fewer rows
+# (another algorithm, another sum order) and a row-parallel layer sums partial
+# products rounded to bf16, so a layer's output may move by a bf16 ulp
+# (2^-8 = 3.9e-3); the loss, a mean over ~1500 tokens, moves by less
+PAR_RTOL_BF16 = 1e-2
+PAR_ATOL_AC10 = 1e-2  # top-10 hits that flip at a near tie, over ~1500 targets
+# the GAN at (2, 1) runs fp32 (TF32 off): its first step's kmeans (50 Lloyd
+# iterations) is discontinuous in its rows, so a bf16 ulp could move a row
+# to another code; in fp32 the rows agree to ~1e-6 and the sums to ~1e-5
+PAR_RTOL_FP32 = 1e-4
+# AdamW's second update (the first at lr > 0) moves a weight by at most
+# 1.0013 lr whatever its gradient (|m^|/sqrt(v^) <= 1.0013 at betas (0.9,
+# 0.999)), plus the decay's lr wd |w|; where the runs' gradients differ in
+# sign (a gradient of bf16 noise, or the key bias's rounding residue) the
+# weights may differ by twice that: |dw| <= 2.1 lr.  Being invariant to the
+# gradient's scale, the update cannot tell a right reduction from a wrong
+# one: the gradients are held directly (PAR_GRAD_*)
+PAR_ADAM = 2.1
+# the first step's gradients (every run on the initial weights, D's too),
+# after the reduction over the data ranks and before the optimizer reads
+# them, against the one-process step's: the relative L2 error of each
+# parameter tensor (those whose true gradient is 0 apart).  bf16: a rank
+# rounds its share of a weight's gradient to bf16 before the sum (2^-9
+# relative), and at (1, 2) the activations' partial sums too; measured on
+# an H100: 2.2e-3 at (2, 1), 3.7e-2 (the code embedding, whose gradient
+# crosses every layer) at (1, 2).  fp32 (TF32 off): other conv algorithms
+# at other row counts, ~1e-6.  A reduction that averages where it should
+# sum, drops a rank, or a collective's backward that does not reduce, is
+# off by half the gradient's norm or more
+PAR_GRAD_BF16 = 1e-1
+PAR_GRAD_FP32 = 1e-3
+# one rank against one process, the same program (mesh (1, 1)): only kernel
+# C's atomic fp32 sums may round differently from run to run
+PAR_RTOL_RUN = 1e-3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_setup(kind: str, dev: torch.device):
+    """(train state, step, global batch) of a parallel-phase run at full
+    width: the shipped PLM in bf16, or the shipped G (MRTE ``use_flash``)
+    and D in fp32; warmup 1 and lr ``PAR_LR``."""
+    import dataclasses
+
+    from megatts2_tpu_torch import config as c
+    from megatts2_tpu_torch.training import (create_gan_state, create_plm_state,
+                                             make_gan_train_step, make_plm_train_step)
+
+    if kind == "plm":
+        cfg, tcfg = c.load_plm_config("configs/config_plm.yaml")
+        tcfg = dataclasses.replace(tcfg, warmup_steps=1, initial_learning_rate=PAR_LR, max_steps=100)
+        return (create_plm_state(cfg, tcfg, device=dev), make_plm_train_step(cfg, tcfg)[0],
+                _plm_batch(cfg, PAR_LENS, PAR_L, SEED + 11))
+    g_cfg, d_cfg, tcfg = c.load_gan_config("configs/config_gan.yaml")
+    g_cfg = dataclasses.replace(g_cfg, mrte=dataclasses.replace(g_cfg.mrte, use_flash=True))
+    tcfg = dataclasses.replace(tcfg, warmup_steps=1, initial_learning_rate=PAR_LR, max_steps=200,
+                               train_dtype="float32")
+    batch = _gan_batch([GAN_TP] * GAN_B, GAN_TP, 512, [512, 512, 480, 512, 400, 512, 512, 300],
+                       512, g_cfg.mrte.phone_vocab_size, SEED + 12)
+    return create_gan_state(g_cfg, d_cfg, tcfg, device=dev), make_gan_train_step(g_cfg, d_cfg, tcfg), batch
+
+
+def _par_modules(state) -> dict:
+    return {"model": state.model} if hasattr(state, "model") else {"g": state.g, "d": state.d}
+
+
+def _par_reference(kind: str, dev: torch.device, path: str) -> dict:
+    """The one-process run: PAR_STEPS steps on the global batch; its metrics,
+    its modules' state dicts and the first step's gradients (on the host)
+    saved to ``path``."""
+    state, step, batch = _par_setup(kind, dev)
+    modules = _par_modules(state)
+    metrics, grads = [], None
+    for _ in range(PAR_STEPS):
+        metrics.append({k: float(v) for k, v in step(state, batch).items()})
+        grads = grads or _par_grads(modules, "cpu")
+    torch.save({"metrics": metrics, "grads": grads,
+                "state": {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                          for name, m in modules.items()}}, path)
+    del state
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def _par_grads(modules: dict, device) -> dict:
+    """The gradients a step left on the modules' parameters, copied to ``device``."""
+    return {name: {k: p.grad.detach().to(device, copy=True) for k, p in m.named_parameters()
+                   if p.grad is not None} for name, m in modules.items()}
+
+
+def _par_steps(kind: str, n_model: int, zero: bool, ref: str) -> dict:
+    """One rank's run: the state placed at (world / n_model, n_model), its
+    rows of PAR_STEPS global batches, then its weights, buffers and first
+    step's gradients against the one-process run's (``ref``): the largest
+    difference of the parameters (those whose true gradient is 0 apart), of
+    the codebook's and the BatchNorms' buffers, each beside the largest
+    reference value, and each gradient's relative L2 error.  Records the
+    kernels' launch signatures (``_par_signatures``)."""
+    from megatts2_tpu_torch.parallel import make_mesh, param_specs, place_train_state, shard_batch
+
+    dev = torch.device("cuda")
+    state, step, batch = _par_setup(kind, dev)
+    place_train_state(state, make_mesh(n_model), zero=zero)
+    _zero_launches()
+    wrappers = _path_wrappers()
+    for fn in wrappers.values():
+        fn.shapes = set()
+    metrics, ms, grads = [], [], None
+    for _ in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append({k: float(v) for k, v in step(state, shard_batch(batch, state.mesh)).items()})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        grads = grads or _par_grads(_par_modules(state), dev)
+    n = _launches()
+    signatures = _par_signatures(wrappers)
+    saved = torch.load(ref)
+    want, want_grads = saved["state"], saved["grads"]
+    diff = {"w": 0.0, "w_zero_grad": 0.0, "w_sum": 0.0, "w_n": 0, "vq": 0.0, "vq_ref": 0.0,
+            "bn": 0.0, "bn_ref": 0.0, "grads": [], "grad_sq": 0.0, "grad_ref_sq": 0.0}
+    for name, module in _par_modules(state).items():
+        specs = param_specs(module)
+        params = dict(module.named_parameters())
+        check(set(want_grads[name]) == set(grads[name]),
+              f"parallel {kind}: gradients of other parameters than one process's")
+        for k, w in want_grads[name].items():
+            g, w = grads[name][k].float(), w.to(dev).float()
+            if k in specs:
+                w = specs[k].local(w)
+            if k.endswith(ZERO_GRAD):
+                continue
+            if k.endswith("qkv.bias"):  # the fused key bias: true gradient 0
+                (gq, _, gv), (wq, _, wv) = g.chunk(3), w.chunk(3)
+                g, w = torch.cat([gq, gv]), torch.cat([wq, wv])
+            d2, w2 = (g - w).square().sum().item(), w.square().sum().item()
+            diff["grads"].append((math.sqrt(d2 / max(w2, 1e-30)), f"{name}.{k}"))
+            diff["grad_sq"] += d2
+            diff["grad_ref_sq"] += w2
+        diff["grads"] = sorted(diff["grads"], reverse=True)[:5]
+        for k, v in module.state_dict().items():
+            w = want[name][k].to(dev)
+            if k in specs:
+                w = specs[k].local(w)
+            d = (v.float() - w.float()).abs()
+            if k in params:
+                parts = {"w_zero_grad" if k.endswith(ZERO_GRAD) else "w": d}
+                if k.endswith("qkv.bias"):  # the fused key bias: true gradient 0
+                    q, kb, vb = d.chunk(3)
+                    parts = {"w": torch.cat([q, vb]), "w_zero_grad": kb}
+                for key, part in parts.items():
+                    diff[key] = max(diff[key], part.max().item())
+                diff["w_sum"] += d.sum().item()
+                diff["w_n"] += d.numel()
+            elif "_codebook." in k:
+                diff["vq"] = max(diff["vq"], d.max().item())
+                diff["vq_ref"] = max(diff["vq_ref"], w.abs().max().item())
+            elif k.endswith((".mean", ".var")):
+                diff["bn"] = max(diff["bn"], d.max().item())
+                diff["bn_ref"] = max(diff["bn_ref"], w.abs().max().item())
+    cb = getattr(getattr(state, "g", None), "vqpe", None)
+    return {"kind": kind, "mesh": state.mesh.shape, "zero": zero, "metrics": metrics, "ms": ms,
+            "launches": n, "diff": diff, "rank": state.mesh.rank, "shapes": signatures,
+            "inited": None if cb is None else float(cb.vq.layers[0]._codebook.inited)}
+
+
+def _par_signatures(wrappers: dict) -> dict:
+    """The launch signatures the wrappers recorded, as JSON (a dtype by its
+    name), the recording switched off again."""
+    out = {name: [[str(x) if isinstance(x, torch.dtype) else x for x in sig] for sig in fn.shapes]
+           for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.shapes = None
+    return out
+
+
+def _par_shapes(recs: list) -> dict:
+    """The launch signatures of ranks' records, joined, as the wrappers
+    record them (for ``_check_path_shapes``)."""
+    out = {name: set() for name in ("A", "A_bwd", "B", "C")}
+    for rec in recs:
+        for name, sigs in rec["shapes"].items():
+            out[name] |= {tuple(getattr(torch, x[6:]) if isinstance(x, str) else x for x in sig)
+                          for sig in sigs}
+    return out
+
+
+def _par_fit(argv: list) -> dict:
+    """One rank's ``cli fit``: its wall, final step, launches and launch
+    signatures."""
+    from megatts2_tpu_torch import cli
+
+    _zero_launches()
+    wrappers = _path_wrappers()
+    for fn in wrappers.values():
+        fn.shapes = set()
+    t0 = time.perf_counter()
+    st = cli.main(argv)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "step": st.step, "mesh": st.mesh.shape,
+            "launches": _launches(), "shapes": _par_signatures(wrappers)}
+
+
+def _par_rank(rank: int, world: int, port: int, jobs: list, out_dir: str) -> None:
+    """A spawned rank on the one card: joins a gloo group through
+    ``maybe_initialize_distributed(backend="gloo")`` and runs ``jobs``
+    ([(function name, kwargs)]), writing their records to
+    ``<out_dir>/rank<r>.json`` as it goes."""
+    import torch.distributed as dist
+
+    from megatts2_tpu_torch.parallel import maybe_initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    check(maybe_initialize_distributed(backend="gloo"), "no process group")
+    out = []
+    try:
+        for fn, kwargs in jobs:
+            out.append(globals()[fn](**kwargs))
+            with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _par_spawn(world: int, jobs: list, out_dir: str) -> list:
+    """``world`` ranks of :func:`_par_rank` on the one card; a rank that
+    raises fails the phase.  Returns each rank's records."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(out_dir)
+    mp.start_processes(_par_rank, args=(world, _free_port(), jobs, out_dir), nprocs=world,
+                       start_method="spawn")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _par_check_steps(rec: dict, ref: list, card: str) -> None:
+    """A rank's run against the one-process run, at the tolerances above."""
+    label = (f"{rec['kind']} at ({rec['mesh']['data']}, {rec['mesh']['model']})"
+             f"{' --zero_opt' if rec['zero'] else ''} rank {rec['rank']}")
+    fp32 = rec["kind"] == "gan"
+    rtol = PAR_RTOL_FP32 if fp32 else PAR_RTOL_BF16
+    worst = 0.0
+    for i, (m, w) in enumerate(zip(rec["metrics"], ref)):
+        check(set(m) == set(w), f"parallel {label}: metrics {sorted(m)} vs {sorted(w)}")
+        for k, v in w.items():
+            err = abs(m[k] - v)
+            if k == "ac10":
+                check(err <= PAR_ATOL_AC10, f"parallel {label} step {i}: ac10 {m[k]} vs {v}")
+            else:
+                check(err <= rtol * abs(v) + 1e-6, f"parallel {label} step {i}: {k} {m[k]} vs {v}")
+                worst = max(worst, err / max(abs(v), 1e-6))
+    d = rec["diff"]
+    adam = PAR_ADAM * PAR_LR * (PAR_STEPS - 1)
+    check(d["w"] <= adam and d["w_zero_grad"] <= adam,
+          f"parallel {label}: weights differ by {d['w']} ({d['w_zero_grad']} zero-gradient), "
+          f"bound {adam}")
+    grad_tol = PAR_GRAD_FP32 if fp32 else PAR_GRAD_BF16
+    grad_all = math.sqrt(d["grad_sq"] / d["grad_ref_sq"])
+    check(d["grads"] and d["grads"][0][0] <= grad_tol and grad_all <= grad_tol,
+          f"parallel {label}: gradients off one process's by {grad_all:.3e} (relative L2), the "
+          f"worst tensors {d['grads']}, tolerance {grad_tol}")
+    if fp32:
+        check(rec["inited"] == 1.0, f"parallel {label}: codebook not initialised")
+        check(d["vq"] <= PAR_RTOL_FP32 * d["vq_ref"] and d["bn"] <= PAR_RTOL_FP32 * d["bn_ref"],
+              f"parallel {label}: codebook {d['vq']} of {d['vq_ref']}, BatchNorm {d['bn']} of "
+              f"{d['bn_ref']}")
+    else:
+        n = rec["launches"]
+        check(n["B_tc"] > 0 and n["C_tc"] > 0, f"parallel {label}: B or C not launched {n}")
+    print(f"parallel {label}: step ms {[round(x, 2) for x in rec['ms']]}, worst metric rel err "
+          f"{worst:.3e}, first step's gradients within {grad_all:.3e} relative L2 of one process's, "
+          f"worst tensors {[(f'{e:.3e}', k) for e, k in d['grads'][:3]]} (tolerance {grad_tol}), "
+          f"weights max |dw| {d['w']:.3e} mean {d['w_sum'] / max(d['w_n'], 1):.3e} "
+          f"(zero-gradient {d['w_zero_grad']:.3e}; bound {adam:.1e}), codebook {d['vq']:.3e} of "
+          f"{d['vq_ref']:.3e}, BatchNorm {d['bn']:.3e} of {d['bn_ref']:.3e}, launches B "
+          f"{rec['launches']['B']} C {rec['launches']['C']} (correctness run over gloo on one "
+          f"card, not scaling) [{card}]")
+
+
+def _loss_rows(log_dir: str, name: str = "plm") -> list:
+    return [r for r in _metric_rows(log_dir, name, "train/") if "train/loss" in r]
+
+
+def _same_losses(a: list, b: list, rtol: float, what: str) -> float:
+    check([r["step"] for r in a] == [r["step"] for r in b] and a, f"{what}: steps {a} vs {b}")
+    worst = 0.0
+    for x, y in zip(a, b):
+        for k in ("train/loss", "train/loss_sum"):
+            err = abs(x[k] - y[k]) / abs(y[k])
+            check(err <= rtol, f"{what}: step {x['step']} {k} {x[k]} vs {y[k]}")
+            worst = max(worst, err)
+    return worst
+
+
+def _par_nccl(card: str) -> None:
+    """The NCCL branches of ``parallel/collectives.py`` (a CPU tensor goes
+    through the card and comes back) on a group of one rank, the only NCCL
+    group one card allows: the sum, the gather, the broadcast and the
+    gradient reduction of CPU and CUDA tensors in fp32 and bf16, each the
+    identity at one rank, on the tensor's device and in its dtype."""
+    import torch.distributed as dist
+
+    from megatts2_tpu_torch.parallel import collectives as col
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        check(dist.get_backend(group) == "nccl", f"backend {dist.get_backend(group)}")
+        gen = torch.Generator().manual_seed(SEED + 13)
+        n = 0
+        for device in ("cpu", "cuda"):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(5, 7, generator=gen).to(device, dtype)
+                b = x.clone()
+                p = torch.nn.Parameter(torch.zeros(5, 7, device=device, dtype=dtype))
+                p.grad = x.clone()
+                col.reduce_grads([p], group, average=True)
+                for what, y in (("all_reduce", col.all_reduce(x, group)),
+                                ("gather", col.gather(x, group, 0, 1, dim=1)),
+                                ("broadcast_", col.broadcast_(b, group)), ("reduce_grads", p.grad)):
+                    check(y.device == x.device and y.dtype == x.dtype and torch.equal(y, x),
+                          f"NCCL {what} of a {device} {dtype} tensor: {y.device} {y.dtype}")
+                    n += 1
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel NCCL collectives: {n} checks of the NCCL branches on one rank, each the "
+          f"identity on the tensor's device and dtype [{card}]")
+
+
+def phase_parallel(dev: torch.device, card: str, root: str, err: dict) -> dict:
+    """Data and tensor parallelism on the one card (``parallel/``), after
+    "pipeline" (its stage-2 dataset): (a) ``torchrun --nproc_per_node 1``
+    (NCCL) fits the full-width PLM 3 steps with a checkpoint, a plain
+    process resumes it a step, each held against one plain process doing
+    the same: at one rank the mesh is (1, 1), so this proves torchrun's
+    environment and the NCCL init, and ``--zero_opt`` and every collective
+    are no-ops there; the NCCL branches of the collectives run on a group
+    of one rank (``_par_nccl``); (b) two ranks (gloo) take the full-width
+    PLM step (bf16) at (2, 1) with ZeRO-1 and at (1, 2), and the full-width
+    GAN step (fp32, its first step's kmeans) at (2, 1), each against the
+    one-process step on the same global batch, gradients included; (c) four
+    ranks fit a 2-layer PLM through ``cli fit --n_model 2``, (2, 2), warmup
+    1 so that the updates move the losses, against one process.  Every
+    kernel launch signature of the ranks is then held against the plain
+    version (``_check_path_shapes``).  Returns each run's launches."""
+    import shutil
+
+    from megatts2_tpu_torch import cli
+    from megatts2_tpu_torch.data import CutManifest, DurationBucketSampler
+    from megatts2_tpu_torch.training.checkpoints import latest_checkpoint
+
+    base = os.path.join(root, "parallel")
+    os.makedirs(base)
+    ds = os.path.join(root, "pipeline", "ds")
+    launches, recs = {}, []
+
+    # (a) one NCCL rank under torchrun, then a plain resume
+    cfg3 = _pipeline_config("configs/config_plm.yaml", os.path.join(base, "plm3.yaml"), ds, 3, 3)
+    cfg4 = _pipeline_config("configs/config_plm.yaml", os.path.join(base, "plm4.yaml"), ds, 4, 4)
+    runs = {}
+    for label in ("torchrun", "plain"):
+        logs, ck = os.path.join(base, f"logs_{label}"), os.path.join(base, f"ck_{label}")
+        argv = ["fit", "-c", cfg3, "--stage", "plm", "--zero_opt", "--log_dir", logs, "--ckpt_dir", ck]
+        t0 = time.perf_counter()
+        if label == "torchrun":
+            env = dict(os.environ, PYTHONPATH=os.getcwd())
+            proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                   "--nproc_per_node", "1", "-m", "megatts2_tpu_torch.cli", *argv],
+                                  capture_output=True, text=True, timeout=600, env=env)
+            check(proc.returncode == 0, f"torchrun fit: rc {proc.returncode}\n{proc.stdout[-3000:]}"
+                                        f"\n{proc.stderr[-3000:]}")
+        else:
+            cli.main(argv)
+        wall = time.perf_counter() - t0
+        check(os.path.basename(latest_checkpoint(ck)) == "step_3.ckpt", f"{label}: no step_3")
+        cli.main(["fit", "-c", cfg4, "--stage", "plm", "--log_dir", logs, "--ckpt_dir", ck])
+        runs[label] = (wall, _loss_rows(logs))
+    worst = _same_losses(runs["torchrun"][1], runs["plain"][1], PAR_RTOL_RUN, "torchrun fit")
+    print(f"parallel torchrun fit plm: 1 NCCL rank (mesh (1, 1): --zero_opt and the collectives "
+          f"are no-ops), 3 steps + checkpoint in {runs['torchrun'][0]:.1f} s (plain process "
+          f"{runs['plain'][0]:.1f} s), resumed a step in a plain process; losses of steps 1-4 "
+          f"against the plain run's within {worst:.2e} relative [{card}]")
+    shutil.rmtree(os.path.join(base, "ck_torchrun"))
+    shutil.rmtree(os.path.join(base, "ck_plain"))
+    torch.cuda.empty_cache()
+    _par_nccl(card)
+
+    # (b) two gloo ranks against one process on the same global batch
+    launches.update(_par_two_ranks(dev, card, base, recs))
+
+    # (c) four gloo ranks, (2, 2), through the CLI, against one process
+    cfg = os.path.join(base, "plm_depth2.yaml")
+    _pipeline_config("configs/config_plm.yaml", cfg, ds, 3, 3)
+    with open(cfg) as f:
+        text = f.read()
+    for key, value in (("n_layers", PAR_DEPTH), ("max_n_cuts", PAR_CUTS), ("warmup_steps", 1)):
+        text, n = re.subn(rf"^(\s*){key}:.*$", rf"\g<1>{key}: {value}", text, count=1, flags=re.M)
+        check(n == 1, f"no {key} in the PLM config")
+    with open(cfg, "w") as f:
+        f.write(text)
+    train = CutManifest.load(os.path.join(ds, "cuts_train.jsonl.gz")).filter_duration(2.1, 20)
+    plans = []
+    for divisor in (1, 2):
+        sampler = DurationBucketSampler(train, max_duration_batch=None, max_cuts=PAR_CUTS,
+                                        num_buckets=1, batch_divisor=divisor)
+        sampler.set_epoch(0)
+        plans.append(list(sampler)[:3])
+    check(plans[0] == plans[1] and len(plans[0]) == 3, f"(c): batch plans differ {plans}")
+    argv = ["fit", "-c", cfg, "--log_dir", os.path.join(base, "logs_c"), "--ckpt_dir",
+            os.path.join(base, "ck_c"), "--n_model", "2"]
+    t0 = time.perf_counter()
+    ranks = _par_spawn(4, [("_par_fit", dict(argv=argv))], os.path.join(base, "ranks4"))
+    wall = time.perf_counter() - t0
+    cli.main(["fit", "-c", cfg, "--log_dir", os.path.join(base, "logs_c1"), "--ckpt_dir",
+              os.path.join(base, "ck_c1")])
+    worst = _same_losses(_loss_rows(os.path.join(base, "logs_c")),
+                         _loss_rows(os.path.join(base, "logs_c1")), PAR_RTOL_BF16, "(2, 2) fit")
+    for r, (rec,) in enumerate(ranks):
+        check(rec["step"] == 3 and rec["mesh"] == {"data": 2, "model": 2}, f"(c) rank {r}: {rec}")
+        n = rec["launches"]
+        check(n["B_tc"] > 0 and n["C_tc"] > 0, f"(c) rank {r}: B or C not launched {n}")
+        launches[f"parallel fit (2, 2) rank {r}"] = n
+        recs.append(rec)
+    print(f"parallel fit plm --n_model 2 on 4 ranks (2, 2), {PAR_DEPTH} layers, warmup 1: {wall:.1f} s "
+          f"for 3 steps (a rank's fit {ranks[0][0]['wall_s']:.1f} s), losses within {worst:.2e} "
+          f"relative of one process; launches per rank B {[rec['launches']['B'] for (rec,) in ranks]} "
+          f"C {[rec['launches']['C'] for (rec,) in ranks]} (correctness run over gloo on one card, not "
+          f"scaling) [{card}]")
+    shutil.rmtree(base)
+    _check_path_shapes(dev, _par_shapes(recs), err, card, "parallel")
+    return launches
+
+
+def _par_two_ranks(dev: torch.device, card: str, base: str, recs: list) -> dict:
+    """(b) of the "parallel" phase: the one-process runs, then two spawned
+    ranks for each of them, each rank's record checked and added to
+    ``recs``.  Returns the runs' launches."""
+    refs, launches = {}, {}
+    for kind in ("plm", "gan"):
+        path = os.path.join(base, f"ref_{kind}.pt")
+        refs[kind] = (path, _par_reference(kind, dev, path))
+    jobs = [("_par_steps", dict(kind="plm", n_model=1, zero=True, ref=refs["plm"][0])),
+            ("_par_steps", dict(kind="plm", n_model=2, zero=False, ref=refs["plm"][0])),
+            ("_par_steps", dict(kind="gan", n_model=1, zero=False, ref=refs["gan"][0]))]
+    t0 = time.perf_counter()
+    ranks = _par_spawn(2, jobs, os.path.join(base, "ranks2"))
+    print(f"parallel two ranks: {len(jobs)} runs in {time.perf_counter() - t0:.1f} s [{card}]")
+    for rank_recs in ranks:
+        for rec in rank_recs:
+            _par_check_steps(rec, refs[rec["kind"]][1], card)
+            key = f"parallel {rec['kind']} ({rec['mesh']['data']}, {rec['mesh']['model']}) rank {rec['rank']}"
+            launches[key] = rec["launches"]
+            recs.append(rec)
+    for path, _ in refs.values():
+        os.remove(path)
+    return launches
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with the phase's seconds printed."""
     t0 = time.perf_counter()
@@ -2885,6 +3388,7 @@ def main() -> None:
         pipeline = _timed("pipeline", phase_pipeline, dev, card, root, k["err"])
         tools = _timed("tools", phase_tools, dev, card, root, k["err"])
         quality = _timed("quality", phase_quality, dev, card, root, k["err"])
+        parallel = _timed("parallel", phase_parallel, dev, card, root, k["err"])
     adm = train["adm_flash"]
     synth = {name: sum(s[name] for s in slices.values()) for name in ("mel", "flash", "flash_tc")}
     served = {name: sum(s[name] for s in serve.values()) for name in ("mel", "flash", "flash_tc")}
@@ -2897,6 +3401,7 @@ def main() -> None:
         by = {f"pipeline {label}": n[key] for label, n in pipeline.items() if n[key]}
         by.update({f"tools {label}": n[key] for label, n in tools.items() if n[key]})
         by.update({f"quality {label}": n[key] for label, n in quality.items() if n[key]})
+        by.update({label: n[key] for label, n in parallel.items() if n[key]})
         return sum(by.values()), by
 
     def wide(key):

@@ -1,7 +1,9 @@
 """Training CLI of the port (port of ``megatts2_tpu/cli.py``): one entry
-point for the four stages, on one card.
+point for the four stages, on one card or on a mesh of ranks.
 
     python -m megatts2_tpu_torch.cli fit -c configs/config_gan.yaml [--stage gan]
+    torchrun --nproc_per_node N -m megatts2_tpu_torch.cli fit -c configs/config_plm.yaml \
+        --n_model M [--zero_opt]
 
 The stage is ``--stage {gan,plm,adm,vocoder}`` or the config's model key.
 Each stage reads the dataset that ``prepare_ds`` wrote (``data.ds_path``:
@@ -16,9 +18,18 @@ artifacts under ``<log_dir>/val_artifacts`` (vocoded with
 ``--hifigan_ckpt``) and keeps the checkpoints with the best ``val/loss_re``.
 Runs on the card unless ``--device cpu`` is given, and raises without one.
 
-JAX's flags, minus ``--n_model`` and ``--zero_opt`` (data and model
-parallelism are not ported), plus ``--device``.  The root ``cli.py`` stays
-the JAX package's.
+Under ``torchrun`` (or any process group already joined) the ranks form
+an (N / M data × M model) mesh (``parallel/``): every rank builds the same
+global batches, the sampler's sizes a multiple of the data axis
+(``batch_divisor``), and trains on its rows; ``--n_model`` splits the
+transformer layers over the model axis, ``--zero_opt`` shards the AdamW
+moments over the data axis.  The step equals the one-process step on the
+global batch.  Rank 0 writes the logs and the checkpoints, in the
+one-device layout, which resume at any mesh.  NCCL on the card, gloo with
+``--device cpu``; a card a rank under NCCL (``LOCAL_RANK``).
+
+JAX's flags, plus ``--device``.  The root ``cli.py`` stays the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -38,6 +49,10 @@ def parse_args(argv=None):
     p.add_argument("--log_dir", default="logs")
     p.add_argument("--ckpt_dir", default=None)
     p.add_argument("--trace_dir", default=None, help="torch.profiler trace of steps 10-12")
+    p.add_argument("--n_model", type=int, default=1, help="tensor-parallel axis size")
+    p.add_argument("--zero_opt", action="store_true",
+                   help="ZeRO-1: shard optimizer moments of replicated "
+                        "params over the data axis (memory ↓ at scale)")
     p.add_argument("--hifigan_ckpt", default=None,
                    help="HiFi-GAN checkpoint for vocoded validation audio (gan stage)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -80,6 +95,7 @@ def main(argv=None):
 
     from .data import (ADMBatchBuilder, CutManifest, DataLoader, DurationBucketSampler,
                        GANBatchBuilder, PLMBatchBuilder, VocoderBatchBuilder)
+    from .parallel import make_mesh, maybe_initialize_distributed, place_train_state
     from .training import run_training
 
     dcfg = _data_cfg(args.config)
@@ -90,11 +106,17 @@ def main(argv=None):
         .filter_duration(min_d, max_d)
         for split in ("train", "valid")
     }
+    maybe_initialize_distributed(device=args.device)
+    mesh = make_mesh(n_model=args.n_model)
+
+    def place(state):
+        """The state on the mesh (weights loaded; run_training restores into it)."""
+        return place_train_state(state, mesh, zero=args.zero_opt)
 
     def loaders(builder_cls, sampler_kwargs, builder_kwargs=None):
         def factory(split):
             def make(epoch):
-                sampler = DurationBucketSampler(manifests[split], batch_divisor=1,
+                sampler = DurationBucketSampler(manifests[split], batch_divisor=mesh.n_data,
                                                 **sampler_kwargs)
                 sampler.set_epoch(epoch)
                 kw = dict(builder_kwargs or {})
@@ -123,6 +145,7 @@ def main(argv=None):
         state = create_gan_state(g_cfg, d_cfg, tcfg, device=args.device)
         if args.init_from_torch:
             _init_from_torch(args.init_from_torch, state.g, state.d)
+        place(state)
         eval_fn = make_gan_eval_step(g_cfg)
         vocoder = None
         if args.hifigan_ckpt:
@@ -149,6 +172,7 @@ def main(argv=None):
         state = create_plm_state(cfg, tcfg, device=args.device)
         if args.init_from_torch:
             _init_from_torch(args.init_from_torch, state.model)
+        place(state)
         step_fn, eval_fn = make_plm_train_step(cfg, tcfg)
         return run_training(
             "plm", state, step_fn, train_f, tcfg.max_steps,
@@ -167,7 +191,7 @@ def main(argv=None):
             VocoderBatchBuilder,
             dict(max_duration_batch=None, max_cuts=dcfg.get("batch_size", 16), num_buckets=1),
             dict(segment_frames=tcfg.segment_frames))
-        state = create_vocoder_state(voc_cfg, d_cfg, tcfg, device=args.device)
+        state = place(create_vocoder_state(voc_cfg, d_cfg, tcfg, device=args.device))
         eval_fn = make_vocoder_eval_step(voc_cfg, tcfg)
         return run_training(
             "vocoder", state, make_vocoder_train_step(voc_cfg, d_cfg, tcfg), train_f,
@@ -188,6 +212,7 @@ def main(argv=None):
     state = create_adm_state(cfg, tcfg, device=args.device)
     if args.init_from_torch:
         _init_from_torch(args.init_from_torch, state.model)
+    place(state)
     step_fn, eval_fn = make_adm_train_step(cfg, tcfg)
     return run_training(
         "adm", state, step_fn, train_f, tcfg.max_steps,

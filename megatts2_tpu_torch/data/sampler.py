@@ -3,7 +3,11 @@
 Cuts are grouped into duration-quantile buckets; a batch accumulates until
 ``max_duration_batch`` total seconds (or ``max_cuts``).  The batch plan of
 a (seed, epoch) is JAX's index for index: the same ``np.random.RandomState``
-draws in the same order.
+draws in the same order.  One case differs, under a ``batch_divisor``
+above 1: a last remainder that no earlier batch precedes is padded here
+too (JAX leaves it short and replicates it over its data axis; the port's
+ranks each need rows of their own), and a pad longer than its bucket
+cycles through the bucket.
 """
 from __future__ import annotations
 
@@ -89,10 +93,10 @@ class DurationBucketSampler:
                 cur.append(int(i))
                 cur_dur += d
             if cur and not self.drop_last:
-                if div > 1 and len(cur) % div and batches:
+                if div > 1 and len(cur) % div:
                     # final remainder: pad by re-sampling from the bucket
                     need = div - len(cur) % div
-                    cur = cur + [int(j) for j in idxs[:need]]
+                    cur = cur + [int(j) for j in np.resize(idxs, need)]
                 batches.append(cur)
         if self.shuffle:
             rng.shuffle(batches)

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..config import MegaADMConfig
+from ..nn.dropout import Draws
 from ..nn.embedding import sinusoidal_table
 from .fast_decode import DecoderStack, adm_fast_decode, dense
 
@@ -42,6 +43,7 @@ class MegaADM(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         dtype: torch.dtype = torch.float32,
+        draws: Optional[Draws] = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced predictions (B, T) in ``dtype`` and the target
         durations ``duration_tokens[:, 1:, 0]``."""
@@ -49,7 +51,8 @@ class MegaADM(nn.Module):
         tc_emb = dense(self.tc_linear_emb, tc_latents.to(dtype))
         x = torch.cat([tc_emb, dt_emb], dim=-1)
         x = x + self.pe[: x.shape[1]].to(dtype)
-        x = self.adm(x, x_lens=lens, causal=True, train=train, generator=generator)
+        x = self.adm(x, x_lens=lens, causal=True, train=train, generator=generator,
+                     draws=draws)
         return dense(self.predict_layer, x)[..., 0], duration_tokens[:, 1:, 0]
 
 

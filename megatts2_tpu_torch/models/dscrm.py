@@ -17,7 +17,10 @@ follows the channels-last order, so the JAX Dense kernel loads as it is.
 BatchNorm is flax's, not ``nn.BatchNorm2d``: epsilon 0.8 (the reference
 passes 0.8 positionally into BatchNorm2d's eps), running = 0.9 · running
 + 0.1 · batch, the batch variance biased and computed as E[x²] − E[x]²,
-statistics and normalisation in fp32 whatever the compute dtype.
+statistics and normalisation in fp32 whatever the compute dtype.  On a
+data-parallel mesh (``mesh``, set by ``parallel.place_train_state``) the
+batch statistics are the global batch's: the sums of x and x² are summed
+over the data ranks, their gradient reaching every rank's rows.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from torch import nn
 
 from ..config import DiscriminatorConfig
 from ..nn import Draws, Linear, dropout, in_dtype, product_then_bias, train_draws
+from ..parallel.collectives import sum_over
 
 
 EPSILON, MOMENTUM = 0.8, 0.9  # the reference's BatchNorm (see the module docstring)
@@ -37,6 +41,8 @@ EPSILON, MOMENTUM = 0.8, 0.9  # the reference's BatchNorm (see the module docstr
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the last axis; parameters ``scale`` and
     ``bias``, running statistics ``mean`` and ``var`` (JAX's names)."""
+
+    mesh = None  # the data-parallel mesh of a placed train state
 
     def __init__(self, features: int):
         super().__init__()
@@ -49,8 +55,14 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(axes)
-            var = ((x32 * x32).mean(axes) - mean * mean).clamp(min=0.0)
+            if self.mesh is None or self.mesh.n_data == 1:
+                mean, sq = x32.mean(axes), (x32 * x32).mean(axes)
+            else:
+                n = x32.numel() // x32.shape[-1] * self.mesh.n_data
+                sums = sum_over(torch.stack([x32.sum(axes), (x32 * x32).sum(axes)]),
+                                self.mesh.data_group)
+                mean, sq = sums[0] / n, sums[1] / n
+            var = (sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 self.mean.copy_(MOMENTUM * self.mean + (1 - MOMENTUM) * mean)
                 self.var.copy_(MOMENTUM * self.var + (1 - MOMENTUM) * var)

@@ -45,14 +45,18 @@ from ..nn.layers import layer_norm, linear
 from ..nn.transformer import attend
 from ..ops.attention import flash_attention
 from ..ops.masks import NEG_INF, causal_mask, make_attn_mask
+from ..parallel.layers import ModelParallel, tp_cols
 from ..quantization.weight_only import QuantLinear, qdense
 
 
 def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.Dense(dtype=x.dtype)`` (weight and bias cast to x's dtype),
-    or ``QDense`` for a :class:`QuantLinear`."""
+    ``QDense`` for a :class:`QuantLinear`, or a tensor-parallel layer's
+    forward (``parallel/layers.py``)."""
     if isinstance(layer, QuantLinear):
         return qdense(layer, x)
+    if isinstance(layer, ModelParallel):
+        return layer(x)
     return linear(layer, x)
 
 
@@ -88,19 +92,23 @@ class DecoderLayer(nn.Module):
         """Pre-LN layer over the whole sequence:
         x + drop(out_proj(attn(norm1 x))), then
         x + linear2(drop(relu(linear1(norm2 x)))).  With ``ckv`` the
-        sequence's k and v are written into its first T positions."""
+        sequence's k and v are written into its first T positions.  Under
+        tensor parallelism the layer runs this rank's heads and FF columns
+        (``Dl`` = D / n_model features of each of q, k and v)."""
         B, T, D = x.shape
-        H = self.attn.n_heads
-        qkv = dense(self.attn.qkv, layer_norm(self.norm1, x))  # (B, T, 3D): q, k, v side by side
+        dh = D // self.attn.n_heads
+        qkv = dense(self.attn.qkv, layer_norm(self.norm1, x))  # (B, T, 3Dl): q, k, v side by side
+        Dl = qkv.shape[-1] // 3
         if ckv is not None:
-            ckv[:, :T] = qkv[..., D:]
-        q, k, v = (t.view(B, T, H, D // H) for t in qkv.split(D, dim=-1))
+            ckv[:, :T] = qkv[..., Dl:]
+        q, k, v = (t.view(B, T, Dl // dh, dh) for t in qkv.split(Dl, dim=-1))
         if k_lens is not None:
             att = flash_attention(q, k, v, k_lens, causal)
         else:
             att = attend(q, k, v, mask)
-        x = x + dropout(dense(self.attn.out_proj, att.reshape(B, T, D)), rate, draws)
-        h = dropout(F.relu(dense(self.ff_linear1, layer_norm(self.norm2, x))), rate, draws)
+        x = x + dropout(dense(self.attn.out_proj, att.reshape(B, T, Dl)), rate, draws)
+        h = dropout(F.relu(dense(self.ff_linear1, layer_norm(self.norm2, x))), rate, draws,
+                    cols=tp_cols(self.ff_linear1))
         return x + dense(self.ff_linear2, h)
 
     def step(self, x: torch.Tensor, ckv: torch.Tensor, t: int) -> torch.Tensor:
@@ -165,11 +173,14 @@ class DecoderStack(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         caches: Optional[list[torch.Tensor]] = None,
+        draws: Optional[Draws] = None,
     ) -> torch.Tensor:
         """The whole sequence through every layer; the mask is built once from
         the lengths (padding, optionally causal) or, with ``use_flash``,
         passed to the kernel as lengths.  ``caches`` (one per layer, as
-        :meth:`new_cache` makes them) receive the sequence's k and v."""
+        :meth:`new_cache` makes them) receive the sequence's k and v.  In
+        train mode the dropout masks come from ``draws``, or from
+        ``generator`` without it."""
         B, T = x.shape[0], x.shape[1]
         mask = k_lens = None
         if x_lens is not None:
@@ -182,7 +193,7 @@ class DecoderStack(nn.Module):
                 k_lens = torch.full((B,), T, dtype=torch.int32, device=x.device)
             else:
                 mask = causal_mask(T, device=x.device)
-        draws = Draws(generator) if train else None
+        draws = (draws or Draws(generator)) if train else None
         for i, layer in enumerate(self.layers):
             x = layer(x, mask, k_lens, causal, self.dropout, draws,
                       None if caches is None else caches[i])

@@ -34,6 +34,7 @@ from ..utils.audio import load_wav, peak_normalize, save_wav
 from .adm import MegaADM, adm_infer
 from .hifigan import HiFiGAN
 from .megag import MegaG
+from .fast_decode import gumbel_noise
 from .plm import MegaPLM, plm_infer
 from .vocos import Vocos
 
@@ -245,23 +246,40 @@ class Megatts:
 
     def _synthesize(self, phone: torch.Tensor, lens: torch.Tensor, mels: torch.Tensor,
                     prompt_features: Optional[tuple], stage_times: Optional[dict],
-                    max_frames: Optional[int] = None):
+                    max_frames: Optional[int] = None, mesh=None):
         """``synthesize`` with this instance's models and PLM options;
         ``prompt_features`` (tc (1|B, P, D), codes (1|B, P)) are broadcast
-        to the batch."""
+        to the batch.  On a ``mesh`` whose data axis splits the batch each
+        rank synthesises its rows; a sampling PLM then draws the noise of
+        the whole batch at once, the same on every rank, and takes its rows."""
+        B = phone.shape[0]
         prompt = {}
         if prompt_features is not None:
-            B = phone.shape[0]
             tc, codes = (torch.as_tensor(np.asarray(x)).to(self.device) for x in prompt_features)
             prompt = dict(plm_prompt_tc=tc.float().expand(B, *tc.shape[1:]),
                           plm_prompt_codes=codes.long().expand(B, *codes.shape[1:]))
-        return synthesize(
-            self.g, self.plm, self.adm, self.vocoder, phone, lens, mels,
-            max_frames or self.max_frames,
+        max_frames = max_frames or self.max_frames
+        split = mesh is not None and mesh.n_data > 1 and B % mesh.n_data == 0
+        if split:
+            from ..parallel import shard_rows
+
+            if self.plm_temperature > 0:
+                V = self.plm.cfg.vq_bins
+                noise = gumbel_noise((-(-max_frames // 8), B, V), self.generator, self.device)
+                prompt["plm_gumbel"] = shard_rows(noise.transpose(0, 1), mesh).transpose(0, 1)
+            phone, lens, mels = (shard_rows(x, mesh) for x in (phone, lens, mels))
+            prompt = {k: v if k == "plm_gumbel" else shard_rows(v, mesh) for k, v in prompt.items()}
+        out = synthesize(
+            self.g, self.plm, self.adm, self.vocoder, phone, lens, mels, max_frames,
             quant=self.quant_int8, plm_temperature=self.plm_temperature,
             plm_top_k=self.plm_top_k, generator=self.generator, stage_times=stage_times,
             **prompt,
         )
+        if not split:
+            return out
+        from ..parallel.collectives import gather_rows
+
+        return tuple(gather_rows(x, mesh) for x in out)
 
     def synthesize_batch(
         self,
@@ -270,13 +288,18 @@ class Megatts:
         stage_times: Optional[dict] = None,
         prompt_features: Optional[tuple] = None,  # (tc (1|B, P, D), codes (1|B, P))
         max_frames: Optional[int] = None,
+        mesh=None,
     ) -> list:
         """Batched synthesis: phone sequences padded to a multiple of 16,
         one cascade for the whole batch, per-utterance trimmed waveforms.
         ``stage_times`` as in :func:`synthesize`; ``prompt_features`` is an
         in-context prosody prompt of one length, one shared by the batch
         when its leading dim is 1; ``max_frames`` overrides the instance's
-        frame budget (``serve.py``'s length buckets)."""
+        frame budget (``serve.py``'s length buckets).  ``mesh``
+        (``parallel.make_mesh``): every rank passes the whole batch, which
+        is padded before each rank takes its rows over the data axis, and
+        gets every utterance back (gathered); a batch that does not split
+        evenly runs whole on every rank, as JAX replicates it."""
         ids = [self.phone_ids(t) for t in texts]
         B = len(ids)
         Tp = -(-max(len(i) for i in ids) // 16) * 16
@@ -287,7 +310,7 @@ class Megatts:
         mels = torch.as_tensor(mels_prompt, dtype=torch.float32).to(self.device)
         wav, _, n_frames = self._synthesize(
             torch.from_numpy(phone).to(self.device), torch.from_numpy(lens).to(self.device),
-            mels, prompt_features, stage_times, max_frames,
+            mels, prompt_features, stage_times, max_frames, mesh,
         )
         wav = wav.cpu().numpy()
         n = n_frames.cpu().numpy()

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..config import MegaPLMConfig
+from ..nn.dropout import Draws
 from ..nn.embedding import sinusoidal_table
 from ..quantization.weight_only import QuantLinear, is_int4
 from .fast_decode import DecoderStack, dense, plm_fast_decode
@@ -46,6 +47,7 @@ class MegaPLM(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         dtype: torch.dtype = torch.float32,
+        draws: Optional[Draws] = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced logits (B, T, vq_bins) in ``dtype`` and the target
         codes ``p_codes[:, 1:]``.  The positional table is added without
@@ -53,7 +55,8 @@ class MegaPLM(nn.Module):
         pc_emb = self.pc_embedding(p_codes[:, :-1]).to(dtype)
         x = torch.cat([tc_latent.to(dtype), pc_emb], dim=-1)
         x = x + self.pe[: x.shape[1]].to(dtype)
-        x = self.plm(x, x_lens=lens, causal=True, train=train, generator=generator)
+        x = self.plm(x, x_lens=lens, causal=True, train=train, generator=generator,
+                     draws=draws)
         return dense(self.predict_layer, x), p_codes[:, 1:]
 
 

@@ -24,7 +24,12 @@ class Draws:
     tensors they apply to), window starts from ``host_generator`` (CPU);
     or, with ``replay`` (a dict of lists under :data:`KINDS`), those values
     in order.  With ``record`` every value handed out is also appended to
-    ``self.recorded``.  ``calls`` counts the values handed out, by kind."""
+    ``self.recorded``.  ``calls`` counts the values handed out, by kind.
+
+    ``rows`` = (data rank, n_data) on a rank of a data-parallel mesh: a
+    mask is drawn (or replayed) at the global batch's shape and the rank
+    takes its rows, so every rank's generator stays in lockstep with a
+    one-process run's and the masks are that run's."""
 
     def __init__(
         self,
@@ -32,9 +37,11 @@ class Draws:
         host_generator: Optional[torch.Generator] = None,
         replay: Optional[dict] = None,
         record: bool = False,
+        rows: Optional[tuple[int, int]] = None,
     ):
         self.generator = generator
         self.host_generator = host_generator
+        self.rows = rows
         self.replay = None if replay is None else {k: list(replay.get(k, ())) for k in KINDS}
         self.recorded = {k: [] for k in KINDS} if record else None
         self.calls = dict.fromkeys(KINDS, 0)
@@ -51,11 +58,27 @@ class Draws:
         self.calls[kind] += 1
         return value
 
-    def keep_mask(self, shape: Sequence[int], rate: float, device) -> torch.Tensor:
-        """Bool mask of ``shape``, each element kept with probability 1 - rate."""
+    def keep_mask(self, shape: Sequence[int], rate: float, device, split_rows: bool = True,
+                  cols: Optional[tuple[int, int]] = None) -> torch.Tensor:
+        """Bool mask of ``shape``, each element kept with probability 1 - rate.
+        Under ``self.rows`` (and ``split_rows``: axis 0 is not broadcast)
+        axis 0 is this rank's rows of the global mask; ``cols`` = (index,
+        count): the last axis is slice ``index`` of ``count`` (the output
+        of a column-parallel layer)."""
+        rows = self.rows if split_rows else None
+        full = list(shape)
+        if rows is not None:
+            full[0] *= rows[1]
+        if cols is not None:
+            full[-1] *= cols[1]
         keep = self._take("masks", lambda: torch.rand(
-            tuple(shape), generator=self.generator, device=device) >= rate)
-        return _tensor(keep, device).bool()
+            tuple(full), generator=self.generator, device=device) >= rate)
+        keep = _tensor(keep, device).bool()
+        if rows is not None:
+            keep = keep.narrow(0, rows[0] * shape[0], shape[0])
+        if cols is not None:
+            keep = keep.narrow(-1, cols[0] * shape[-1], shape[-1])
+        return keep
 
     def indices(self, n: int, num: int, device) -> torch.Tensor:
         """``num`` row indices into ``n`` rows: distinct (a permutation's head)
@@ -98,14 +121,16 @@ def in_dtype(value: float, dtype: torch.dtype) -> float:
 
 
 def dropout(x: torch.Tensor, rate: float, draws: Optional[Draws],
-            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+            broadcast_dims: Sequence[int] = (),
+            cols: Optional[tuple[int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout(rate, broadcast_dims)``: the identity without
     ``draws`` (eval) or at rate 0; else keep with probability 1 - rate,
     scaled by its inverse, one mask value shared along ``broadcast_dims``.
     The keep probability is rounded to x's dtype first, as JAX rounds the
-    Python float it divides by (:func:`in_dtype`)."""
+    Python float it divides by (:func:`in_dtype`).  ``cols``: x's last axis
+    is a slice of a column-parallel layer's output (``Draws.keep_mask``)."""
     if draws is None or rate == 0.0:
         return x
     shape = [1 if i in broadcast_dims else n for i, n in enumerate(x.shape)]
-    keep = draws.keep_mask(shape, rate, x.device)
+    keep = draws.keep_mask(shape, rate, x.device, split_rows=0 not in broadcast_dims, cols=cols)
     return torch.where(keep, x / in_dtype(1.0 - rate, x.dtype), torch.zeros((), dtype=x.dtype, device=x.device))

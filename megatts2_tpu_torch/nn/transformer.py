@@ -78,14 +78,15 @@ class MultiHeadAttention(nn.Module):
         B, Tq, D = q.shape
         src = q if kv is None else kv
         dh = D // self.n_heads
-        qh = self.w_q(q).view(B, Tq, self.n_heads, dh)
-        kh = self.w_k(src).view(B, src.shape[1], self.n_heads, dh)
-        vh = self.w_v(src).view(B, src.shape[1], self.n_heads, dh)
+        # all heads, or this rank's under tensor parallelism (parallel/layers.py)
+        qh = self.w_q(q).unflatten(-1, (-1, dh))
+        kh = self.w_k(src).unflatten(-1, (-1, dh))
+        vh = self.w_v(src).unflatten(-1, (-1, dh))
         if kv is None and k_lens is not None:
             att = flash_attention(qh, kh, vh, k_lens, causal)
         else:
             att = attend(qh, kh, vh, mask)
-        return dropout(self.out_proj(att.reshape(B, Tq, D)), self.dropout, draws)
+        return dropout(self.out_proj(att.flatten(2)), self.dropout, draws)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -19,6 +19,14 @@ models use) also refreshes ``embed_avg`` and ``cluster_size`` of an
 expired code so that the replacement survives the EMA renormalisation;
 ``False`` reproduces the reference, whose expiry the same step's
 ``embed = embed_avg / cluster_size`` overwrites.
+
+On a data-parallel mesh (``mesh``, set by ``parallel.place_train_state``)
+every statistic is the global batch's, as in JAX, where they are
+"identical on every replica by construction": a train step gathers the
+rows of every data rank (exact, ``parallel/collectives.py``), runs kmeans,
+the expiry and the EMA on them with draws over the global row count, and
+keeps its own rows' codes, so each rank's codebook equals a one-process
+run's.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import gather_rows
 
 # the reference's codebook constants (core_vq.py): 50 Lloyd iterations,
 # EMA decay 0.99, Laplace smoothing 1e-5, codes with EMA mass under 2 expire
@@ -53,6 +63,8 @@ def _kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int, seeds: tor
 
 
 class EuclideanCodebook(nn.Module):
+    mesh = None  # the data-parallel mesh of a placed train state
+
     def __init__(self, dim: int, codebook_size: int, fixed_expiry: bool = True):
         super().__init__()
         self.dim, self.codebook_size = dim, codebook_size
@@ -80,6 +92,11 @@ class EuclideanCodebook(nn.Module):
             return F.embedding(ind, self.embed).reshape(x.shape).to(x.dtype), ind.reshape(x.shape[:-1])
         with torch.no_grad():
             flat = flat.detach()
+            rows = None
+            if self.mesh is not None and self.mesh.n_data > 1:
+                first = self.mesh.data_rank * flat.shape[0]
+                rows = slice(first, first + flat.shape[0])
+                flat = gather_rows(flat, self.mesh)
             n, K = flat.shape[0], self.codebook_size
             if self.inited.item() < 0.5:
                 embed, bins = _kmeans(flat, K, KMEANS_ITERS, draws.indices(n, K, flat.device))
@@ -104,6 +121,8 @@ class EuclideanCodebook(nn.Module):
             self.cluster_size.copy_(cluster_size)
             self.embed_avg.copy_(embed_avg)
             self.embed.copy_(embed_avg / smoothed[:, None])
+            if rows is not None:
+                quantized, ind = quantized[rows], ind[rows]
         return quantized.reshape(x.shape).to(x.dtype), ind.reshape(x.shape[:-1])
 
 

@@ -22,6 +22,13 @@ A request line is ``{"id": "u1", "text": "...", "wavs_dir": "prompts/spk1"}``
 (requests of one ``wavs_dir`` share its prompt mel).  It runs on the card
 unless ``--device cpu`` is given; without a card it raises.  Batch and
 continuous modes print one JSON line of throughput and return it.
+
+Under ``torchrun`` the batch mode runs on the (N / ``--n_model`` data ×
+``--n_model``) mesh as JAX's does: the weights whole on every rank, each
+padded batch split over the data axis (``Megatts.synthesize_batch(mesh=)``);
+rank 0 writes the wavs and prints the record.  The continuous engine and
+the HTTP server take no mesh in JAX either; here they refuse a world of
+more than one rank rather than serve on one of them.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ def parse_args(argv=None):
     p.add_argument("--frames_per_phone", type=float, default=16.0,
                    help="frame-budget estimate per phone; a request longer than its bucket "
                         "is truncated at the bucket")
+    p.add_argument("--n_model", type=int, default=1)
     p.add_argument("--g_ckpt", default=None)
     p.add_argument("--g_config", default="configs/config_gan.yaml")
     p.add_argument("--plm_ckpt", default=None)
@@ -323,6 +331,13 @@ def main(argv=None):
         raise SystemExit("serving requires --g_ckpt/--plm_ckpt/--adm_ckpt")
     if args.http is None and not (args.requests and args.out_dir):
         raise SystemExit("batch serving requires --requests/--out_dir")
+    from .parallel import make_mesh, maybe_initialize_distributed
+
+    maybe_initialize_distributed(device=args.device)
+    mesh = make_mesh(n_model=args.n_model)
+    if mesh.size > 1 and (args.http is not None or args.continuous):
+        raise SystemExit("--http and --continuous serve on one rank; run them without torchrun "
+                         f"(this world has {mesh.size} ranks)")
     t_load = time.perf_counter()
     tts = megatts_from_pretrained(
         args.g_ckpt, args.g_config, args.plm_ckpt, args.plm_config, args.adm_ckpt,
@@ -334,7 +349,8 @@ def main(argv=None):
     load_s = time.perf_counter() - t_load
     if args.http is not None:
         return run_http(args, tts)
-    os.makedirs(args.out_dir, exist_ok=True)
+    if mesh.is_main:
+        os.makedirs(args.out_dir, exist_ok=True)
     buckets = sorted(int(b) for b in args.buckets.split(",") if int(b) <= args.max_frames)
     if not buckets or buckets[-1] < args.max_frames:
         buckets.append(args.max_frames)
@@ -380,12 +396,17 @@ def main(argv=None):
             # pad the last batch to the batch size: one batch shape a bucket
             texts = [r["text"] for r in chunk] + [chunk[-1]["text"]] * (args.batch_size - len(chunk))
             wavs = tts.synthesize_batch(texts, mel[None].expand(len(texts), *mel.shape),
-                                        max_frames=bucket, prompt_features=pf)
+                                        max_frames=bucket, prompt_features=pf, mesh=mesh)
             for r, wav in zip(chunk, wavs):
-                save_wav(os.path.join(args.out_dir, f"{r['id']}.wav"), wav)
+                if mesh.is_main:
+                    save_wav(os.path.join(args.out_dir, f"{r['id']}.wav"), wav)
                 audio_s += wav.shape[0] / HIFIGAN_SR
                 done += 1
     record.update(mode="batch", batch_size=args.batch_size)
+    if mesh.size > 1:
+        record.update(mesh=mesh.shape)
+        if not mesh.is_main:
+            return record
     return _report(record, done, audio_s, time.perf_counter() - t0)
 
 

@@ -15,6 +15,14 @@ tree under ``vocos.`` and ``wave_D.``.  So the JAX package's
 the port's loaders (``models/pretrained.py``) read the reference's
 checkpoints and its own alike.
 
+A train state placed on a mesh (``parallel.place_train_state``) is
+written in the same one-device layout: every rank takes part in a save
+(the tensor-parallel slices and their AdamW moments are gathered over the
+model group, a ZeRO-1 optimizer consolidated over the data group) and
+global rank 0 writes.  A restore reads the one-device layout and keeps
+each rank's slices, so a checkpoint written at any mesh resumes at any
+other.
+
 Retention follows the JAX trainers' policy: the top-``keep`` checkpoints by
 the monitored validation metric (lower is better; unscored steps rank
 last) plus the latest step, with the scores in a ``scores.json`` beside
@@ -120,36 +128,60 @@ def _to_host(obj):
     return obj
 
 
-def train_state_dict(state) -> dict:
+def _is_main(state) -> bool:
+    mesh = getattr(state, "mesh", None)
+    return mesh is None or mesh.is_main
+
+
+def train_state_dict(state) -> Optional[dict]:
     """The whole train state on the host: models in the reference layout,
-    optimizer and scheduler states, generator states, the step."""
+    optimizer and scheduler states, generator states, the step.  On a mesh
+    every rank calls it and rank 0 gets the dict, the others None."""
+    from ..parallel import full_optimizer_state, full_weights
+    from ..parallel.sharding import full_tensors
+
+    mesh = getattr(state, "mesh", None)
+    main = _is_main(state)
     models, opts, scheds, gens = _parts(state)
     sd: Dict[str, torch.Tensor] = {}
     for m in models:
-        sd.update(model_state_dict(m))
-    out = {"state_dict": sd, "optimizer_states": [_to_host(o.state_dict()) for o in opts],
+        with full_weights(m, gather=True):
+            if main:
+                sd.update(model_state_dict(m))
+    opt_states = [full_optimizer_state(o, m, mesh) for o, m in zip(opts, models)]
+    g_ema = getattr(state, "g_ema", None)
+    if g_ema is not None:
+        g_ema = full_tensors(g_ema, models[0])
+    if not main:
+        return None
+    out = {"state_dict": sd, "optimizer_states": [_to_host(o) for o in opt_states],
            "lr_schedulers": [s.state_dict() for s in scheds],
            "generators": {k: g.get_state() for k, g in gens.items()},
            "global_step": int(state.step)}
-    if getattr(state, "g_ema", None) is not None:
-        out["g_ema"] = _to_host(state.g_ema)
+    if g_ema is not None:
+        out["g_ema"] = _to_host(g_ema)
     return out
 
 
 def load_train_state_dict(state, ckpt: dict):
-    """Restore ``state`` in place from :func:`train_state_dict`'s dict."""
+    """Restore ``state`` in place from :func:`train_state_dict`'s dict (each
+    rank of a placed state keeps its slices)."""
+    from ..parallel import full_weights, load_full_optimizer_state
+    from ..parallel.sharding import local_tensors
+
     models, opts, scheds, gens = _parts(state)
     for m in models:
-        load_model_state_dict(m, ckpt["state_dict"])
-    for o, s in zip(opts, ckpt["optimizer_states"]):
-        o.load_state_dict(s)
+        with full_weights(m, gather=False):
+            load_model_state_dict(m, ckpt["state_dict"])
+    for o, m, s in zip(opts, models, ckpt["optimizer_states"]):
+        load_full_optimizer_state(o, m, s)
     for sch, s in zip(scheds, ckpt["lr_schedulers"]):
         sch.load_state_dict(s)
     for k, g in gens.items():
         g.set_state(ckpt["generators"][k])
     if "g_ema" in ckpt:
         dev = next(models[0].parameters()).device
-        state.g_ema = {k: v.to(dev) for k, v in ckpt["g_ema"].items()}
+        state.g_ema = local_tensors({k: v.to(dev) for k, v in ckpt["g_ema"].items()}, models[0])
     state.step = int(ckpt["global_step"])
     return state
 
@@ -205,11 +237,22 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
                     metric: Optional[float] = None) -> str:
     """Write ``state`` as ``step_{step}.ckpt`` and prune to the top-``keep``
     by ``metric`` (ascending) plus the latest step.  The state is copied to
-    the host before the exclusive lock is taken."""
+    the host before the exclusive lock is taken.  On a mesh every rank
+    calls it, rank 0 writes, and every rank returns once the file is there."""
+    from ..parallel.collectives import barrier
+
     ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
     payload = train_state_dict(state)
     path = os.path.join(ckpt_dir, f"step_{step}.ckpt")
+    if payload is not None:
+        _write(ckpt_dir, path, payload, step, keep, metric)
+    barrier(getattr(state, "mesh", None))
+    return path
+
+
+def _write(ckpt_dir: str, path: str, payload: dict, step: int, keep: int,
+           metric: Optional[float]) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     with _locked(ckpt_dir, exclusive=True):
         tmp = f"{path}.tmp{os.getpid()}"
         torch.save(payload, tmp)
@@ -218,7 +261,6 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 5,
         if metric is not None:
             scores[str(step)] = float(metric)
         _prune(ckpt_dir, keep, scores)
-    return path
 
 
 def _prune(ckpt_dir: str, keep: int, scores: Dict[str, float]) -> None:

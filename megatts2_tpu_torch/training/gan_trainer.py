@@ -20,6 +20,14 @@ Window starts, one per window length and shared by the batch, are drawn in
 All randomness comes from the state's :class:`~megatts2_tpu_torch.nn.Draws`,
 which a test may replace by one that replays injected values.
 
+On a data-parallel mesh (``state.mesh``, ``parallel.place_train_state``)
+the step runs on this rank's rows of the global batch; its losses are
+means over equal shards, so the gradients are AVERAGED over the data
+ranks, and the metrics are the means of the ranks' values.  The window
+starts read the global batch's longest length; the codebook and the
+BatchNorms keep global statistics (``quantization/vq.py``,
+``models/dscrm.py``) and the draws the global masks' rows.
+
 The step computes in ``train_dtype`` over fp32 master weights, the casts
 written out in each layer; the losses, the codebook and the optimizers are
 fp32.  Batches are dicts of numpy arrays in ``GANBatchBuilder``'s form;
@@ -37,6 +45,8 @@ import torch
 from ..config import DiscriminatorConfig, MegaGConfig, TrainConfig
 from ..models import Discriminator, MegaG, init_random_
 from ..nn import Draws
+from ..parallel.collectives import data_mean, reduce_grads
+from ..parallel.mesh import Mesh, full_batch
 from ..quantization.vq import EuclideanCodebook
 from .lm_trainers import Metrics, _on, train_device, compute_dtype
 from .schedules import make_adamw
@@ -56,6 +66,7 @@ class GANTrainState:
     # parameters the first train step starts from (so weights loaded into
     # ``g`` after ``create_gan_state`` seed it); None before that or without EMA
     g_ema: Optional[Dict[str, torch.Tensor]] = None
+    mesh: Optional[Mesh] = None  # set by parallel.place_train_state
 
 
 def create_gan_state(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig, tcfg: TrainConfig,
@@ -96,9 +107,11 @@ def make_gan_train_step(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig,
         g, d, draws = state.g, state.d, state.draws
         if tcfg.g_ema_decay > 0 and state.g_ema is None:
             state.g_ema = {n: p.detach().clone() for n, p in g.named_parameters()}
+        mesh = state.mesh
         b = _on(batch, next(g.parameters()).device)
         T = batch["mel_targets"].shape[1]
-        max_len = min(int(np.max(batch["mel_target_lens"])), T) if "mel_target_lens" in batch else T
+        lens = full_batch(batch).get("mel_target_lens")
+        max_len = min(int(np.max(lens)), T) if lens is not None else T
         starts = draws.starts([max(max_len - wl, 0) for wl in d_cfg.time_lengths])
 
         def disc(mel):
@@ -113,6 +126,8 @@ def make_gan_train_step(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig,
         d_fake = 0.5 * (disc(y_hat.detach()) ** 2).mean()
         d_loss = d_real + d_fake
         d_loss.backward()
+        if mesh is not None:
+            reduce_grads(d.parameters(), mesh.data_group, average=True)
         state.d_opt.step()
         state.d_sched.step()
 
@@ -123,6 +138,8 @@ def make_gan_train_step(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig,
         g_loss = (g_re + commit * tcfg.G_commit_loss_coeff + vq_loss * tcfg.G_vq_loss_coeff
                   + g_adv * tcfg.G_adv_loss_coeff)
         g_loss.backward(inputs=g_params)
+        if mesh is not None:
+            reduce_grads(g_params, mesh.data_group, average=True)
         state.g_opt.step()
         state.g_sched.step()
         if state.g_ema is not None:
@@ -133,10 +150,10 @@ def make_gan_train_step(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig,
                     e.copy_(e * k + p * (1.0 - k))
         state.step += 1
         cluster_size = g.vqpe.vq.layers[0]._codebook.cluster_size
-        return {"D_loss_total": d_loss.detach(), "D_loss_real": d_real.detach(),
-                "D_loss_fake": d_fake.detach(), "G_loss_total": g_loss.detach(),
-                "G_loss_adv": g_adv.detach(), "G_loss_re": g_re.detach(),
-                "G_loss_commit": commit.detach(), "G_loss_vq": vq_loss.detach(),
+        losses = {"D_loss_total": d_loss, "D_loss_real": d_real, "D_loss_fake": d_fake,
+                  "G_loss_total": g_loss, "G_loss_adv": g_adv, "G_loss_re": g_re,
+                  "G_loss_commit": commit, "G_loss_vq": vq_loss}
+        return {**{k: data_mean(v.detach(), mesh) for k, v in losses.items()},
                 "vq_code_usage": (cluster_size > 1.0).float().mean()}
 
     return train_step
@@ -156,7 +173,7 @@ def make_gan_eval_step(g_cfg: MegaGConfig) -> Callable[[GANTrainState, dict], Me
         else:
             y_hat, _, _ = torch.func.functional_call(g, state.g_ema, _g_inputs(b))
         loss_re = (b["mel_targets"].float() - y_hat.float()).abs().mean()
-        return {"loss_re": loss_re, "y_hat": y_hat}
+        return {"loss_re": data_mean(loss_re, state.mesh), "y_hat": y_hat}
 
     return eval_step
 
@@ -168,7 +185,8 @@ def make_gan_val_artifacts(g_cfg: MegaGConfig, out_dir: str, vocoder=None) -> Ca
     a ``vocoder`` module (the port's HiFi-GAN, on the state's device),
     ``audio_target_step<step>.wav`` and ``audio_hat_step<step>.wav``
     (reference ``trainer.py:154-188``).  The output is the eval step's
-    (``g_ema`` when the state has it)."""
+    (``g_ema`` when the state has it).  On a mesh every rank calls it (the
+    eval step's collectives) and rank 0 writes."""
     import os
 
     from ..models import vocode
@@ -181,6 +199,8 @@ def make_gan_val_artifacts(g_cfg: MegaGConfig, out_dir: str, vocoder=None) -> Ca
     @torch.no_grad()
     def artifact_fn(state: GANTrainState, batch: Dict[str, np.ndarray], step: int) -> None:
         y_hat = evaluate(state, batch)["y_hat"][0].float()
+        if state.mesh is not None and not state.mesh.is_main:
+            return
         y = torch.as_tensor(np.asarray(batch["mel_targets"][0], np.float32), device=y_hat.device)
         save_spectrogram_plot(os.path.join(out_dir, f"mel_step{step}"),
                               y.cpu().numpy().T, y_hat.cpu().numpy().T)

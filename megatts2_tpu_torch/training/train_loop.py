@@ -6,9 +6,19 @@ step's metrics plus ``steps_per_sec`` and ``host_rss_gb`` under
 ``train/``; every ``val_every`` steps the mean of each scalar of
 ``eval_step`` over the validation loader under ``val/``, then
 ``artifact_fn(state, first_valid_batch, step)`` (its failure is reported,
-never fatal); JSONL through ``utils.logging.MetricsLogger``.  There is no
-mesh (one device).  ``trace_dir``: a ``torch.profiler`` trace of steps
-[10, 13) (``utils.logging.ProfilerHook``).  The run starts from
+never fatal); JSONL through ``utils.logging.MetricsLogger``.
+``trace_dir``: a ``torch.profiler`` trace of steps [10, 13)
+(``utils.logging.ProfilerHook``).
+
+On a mesh (the one ``parallel.place_train_state`` recorded on the state)
+every rank runs the loop on the same global batches and takes its rows
+(``parallel.shard_batch``; a batch that does not split evenly over the data
+ranks raises, since the steps' reductions assume each rank holds rows of
+its own); the steps' metrics are global, so the
+validation means are of global values.  Only global rank 0 writes the
+metrics, the ``loop/`` row, the trace and the checkpoints; every rank
+takes part in a save (it gathers the sharded state) and calls
+``artifact_fn``, which writes on rank 0 only.  The run starts from
 ``ckpt_path`` when given, else from the latest checkpoint in ``ckpt_dir``
 (if any); with ``ckpt_dir`` it saves on the JAX cadence: after every
 ``save_every_n_vals``-th validation, scored by its ``val/<monitor>``, and
@@ -30,6 +40,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 
+from ..parallel.mesh import Mesh, shard_batch
 from ..utils.logging import MetricsLogger, ProfilerHook, StepTimer
 from .checkpoints import latest_checkpoint, restore_checkpoint, save_checkpoint
 
@@ -44,6 +55,16 @@ def _host_rss_gb() -> float:
     except OSError:  # not Linux
         return float("nan")
     return round(pages * os.sysconf("SC_PAGE_SIZE") / 1e9, 2)
+
+
+class _NoLogger:
+    """The logger of a rank other than 0."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def run_training(
@@ -67,16 +88,17 @@ def run_training(
 ):
     """Train ``state`` in place from ``state.step`` to ``max_steps``; returns it.
 
-    ``train_loader_factory(epoch)`` yields the batches of one epoch;
+    ``train_loader_factory(epoch)`` yields the global batches of one epoch;
     ``train_step(state, batch)`` and ``eval_step(state, batch)`` return
     dicts of scalars (see ``lm_trainers``).  Restores and saves as the
     module docstring says."""
+    mesh = getattr(state, "mesh", None) or Mesh()
     path = ckpt_path or (latest_checkpoint(ckpt_dir) if ckpt_dir else None)
     if path:
         restore_checkpoint(path, state)
-    logger = MetricsLogger(log_dir, name)
+    logger = MetricsLogger(log_dir, name) if mesh.is_main else _NoLogger()
     timer = StepTimer()
-    profiler = ProfilerHook(trace_dir)
+    profiler = ProfilerHook(trace_dir if mesh.is_main else None)
     step = state.step
     epoch = 0
     n_vals = 0
@@ -95,7 +117,7 @@ def run_training(
                         break
                     n_batches += 1
                     profiler.before_step(step)
-                    metrics = train_step(state, batch)
+                    metrics = train_step(state, shard_batch(batch, mesh, replicate=False))
                     profiler.after_step(step)
                     timer.tick()
                     step += 1
@@ -109,7 +131,7 @@ def run_training(
                     if val_every and step % val_every == 0 and eval_step and valid_loader_factory:
                         n_vals += 1
                         vm = _validate(state, eval_step, valid_loader_factory(epoch), artifact_fn,
-                                       step)
+                                       step, mesh)
                         logger.log(step, vm, prefix="val/")
                         if ckpt_dir and n_vals % max(save_every_n_vals, 1) == 0:
                             save_checkpoint(ckpt_dir, state, step, keep=keep_ckpts,
@@ -136,12 +158,13 @@ def run_training(
 
 
 def _validate(state, eval_step: Callable, batches: Iterable, artifact_fn: Optional[Callable],
-              step: int) -> Dict[str, float]:
+              step: int, mesh: Mesh) -> Dict[str, float]:
     """The mean of each scalar ``eval_step`` returns over ``batches``; then
     ``artifact_fn`` on the first batch, whose failure is printed, not raised."""
     vals: Dict[str, list] = {}
     first = None
     for vb in batches:
+        vb = shard_batch(vb, mesh, replicate=False)
         first = vb if first is None else first
         for k, v in eval_step(state, vb).items():
             if np.ndim(v) == 0:

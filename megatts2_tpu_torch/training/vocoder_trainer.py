@@ -16,6 +16,10 @@ of updates taken.  One step, in JAX's order:
   (D's gradients stay as the D step left them); the mel of ŷ goes through
   kernel A and its backward on the card.
 
+On a data-parallel mesh (``state.mesh``) the step runs on this rank's rows
+of the global batch and AVERAGES the gradients over the data ranks (the
+losses are means over equal shards); the metrics are the ranks' means.
+
 The discriminator's logits are cast to fp32; the losses and optimizers are
 fp32.  Batches are dicts with ``wav`` (B, segment_frames · 256) fp32, numpy
 or tensors.  Metrics are 0-d tensors, read by the host only where the loop
@@ -24,7 +28,7 @@ logs them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +37,8 @@ from ..config import HiFiGANConfig, VocoderTrainConfig, VocosConfig, WaveDiscCon
 from ..models import HiFiGAN, Vocos, init_random_, vocode
 from ..models.wave_dscrm import WaveDiscriminator
 from ..ops.mel import mel_spectrogram
+from ..parallel.collectives import data_mean, reduce_grads
+from ..parallel.mesh import Mesh
 from .lm_trainers import Metrics, train_device, compute_dtype
 from .schedules import adamw, exponential_decay
 
@@ -48,6 +54,7 @@ class VocoderTrainState:
     d_opt: torch.optim.Optimizer
     d_sched: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    mesh: Optional[Mesh] = None  # set by parallel.place_train_state
 
 
 def _make_opt(params, tcfg: VocoderTrainConfig):
@@ -100,6 +107,8 @@ def make_vocoder_train_step(voc_cfg: VocoderConfig, d_cfg: WaveDiscConfig,
         l_fake, _ = logits(y_hat.detach())
         d_loss = sum(((1.0 - r) ** 2).mean() + (f ** 2).mean() for r, f in zip(l_real, l_fake))
         d_loss.backward()
+        if state.mesh is not None:
+            reduce_grads(d.parameters(), state.mesh.data_group, average=True)
         state.d_opt.step()
         state.d_sched.step()
 
@@ -114,12 +123,14 @@ def make_vocoder_train_step(voc_cfg: VocoderConfig, d_cfg: WaveDiscConfig,
         loss_mel = (mel - mel_spectrogram(y_hat)[:, :T]).abs().mean()
         g_loss = loss_adv + tcfg.fm_loss_coeff * loss_fm + tcfg.mel_loss_coeff * loss_mel
         g_loss.backward(inputs=g_params)
+        if state.mesh is not None:
+            reduce_grads(g_params, state.mesh.data_group, average=True)
         state.g_opt.step()
         state.g_sched.step()
         state.step += 1
-        return {"D_loss_total": d_loss.detach(), "G_loss_total": g_loss.detach(),
-                "G_loss_adv": loss_adv.detach(), "G_loss_fm": loss_fm.detach(),
-                "G_loss_mel": loss_mel.detach(), "loss": loss_mel.detach()}
+        m = {"D_loss_total": d_loss, "G_loss_total": g_loss, "G_loss_adv": loss_adv,
+             "G_loss_fm": loss_fm, "G_loss_mel": loss_mel, "loss": loss_mel}
+        return {k: data_mean(v.detach(), state.mesh) for k, v in m.items()}
 
     return train_step
 
@@ -134,6 +145,7 @@ def make_vocoder_eval_step(voc_cfg: VocoderConfig,
         wav = _wav(batch, next(state.g.parameters()).device)
         mel = mel_spectrogram(wav)[:, :T]
         y_hat = vocode(state.g, mel, torch.float32)
-        return {"loss": (mel - mel_spectrogram(y_hat)[:, :T]).abs().mean(), "y_hat": y_hat}
+        loss = (mel - mel_spectrogram(y_hat)[:, :T]).abs().mean()
+        return {"loss": data_mean(loss, state.mesh), "y_hat": y_hat}
 
     return eval_step

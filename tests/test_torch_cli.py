@@ -7,7 +7,10 @@ stage's validation artifacts come as a PNG with matplotlib and as an
 ``.npz`` pair without (with HiFi-GAN audio when given a checkpoint);
 ``--trace_dir`` writes a ``torch.profiler`` trace; a directory without
 checkpoints given to ``--ckpt_path`` raises; without ``--device`` the CLI
-asks for the card.  PLM and ADM: 3 steps from one reference ``.ckpt``
+asks for the card; the flags and defaults are JAX's, ``--device``
+added.  Two gloo ranks fit the PLM at (2, 1) with ZeRO-1, resume at
+(1, 2), and log and write what one process does (train loss rtol 1e-5,
+weights atol 1e-6; dropout 0, fp32).  PLM and ADM: 3 steps from one reference ``.ckpt``
 through ``--init_from_torch`` at fp32 with dropout 0 log the train metrics
 of JAX's CLI within rtol 1e-4 (fp32 sums in another order over 3 AdamW
 updates); the batch plans of the two samplers (divisor 1 here, 8 under
@@ -212,3 +215,45 @@ def test_fit_matches_jax_cli(dataset, tmp_path, stage):
         for k in keys:
             np.testing.assert_allclose(a[k], b[k], rtol=1e-4, err_msg=f"{k} step {a['step']}")
     assert rows["port"][0]["train/loss"] != rows["port"][-1]["train/loss"]  # it trained
+
+
+def test_parse_args_keeps_the_jax_flags_and_defaults():
+    """Every flag of JAX's ``fit`` with its default (``--n_model`` and
+    ``--zero_opt`` included), plus ``--device``."""
+    argv = ["fit", "-c", "configs/config_plm.yaml"]
+    got, want = vars(cli.parse_args(argv)), vars(jcli.parse_args(argv))
+    assert {k: got[k] for k in want} == want
+    assert set(got) - set(want) == {"device"} and got["device"] == "cuda"
+
+
+def test_fit_on_two_ranks_resumes_at_another_mesh(dataset, tmp_path):
+    """``fit`` under a group of 2 ranks (gloo, CPU): 2 steps at (2, 1) with
+    ``--zero_opt``, then a resume at (1, 2) to step 3, against one process
+    doing the same (a resume starts at epoch 0, as in JAX): the logged
+    train losses rtol 1e-5 and the written weights atol 1e-6 (fp32,
+    dropout 0; the one batch of 8 cuts splits evenly, so the batch plan
+    is the one process's)."""
+    import parallel_workers as pw
+    from megatts2_tpu_torch.training.checkpoints import read_checkpoint
+
+    _, ds = dataset
+    cfg2, cfg3 = _config(tmp_path, "plm", ds, 2), _config(tmp_path, "plm", ds, 3)
+    logs, ck = str(tmp_path / "logs"), str(tmp_path / "ck")
+    out = pw.run(2, [("cli_fit_meshes", dict(cfg2=cfg2, cfg3=cfg3, logs=logs, ck=ck))],
+                 str(tmp_path))
+    assert out["cli_fit_meshes"] is None, out["cli_fit_meshes"]
+    ref_logs = str(tmp_path / "logs_ref")
+    for cfg in (cfg2, cfg3):
+        cli.main(["fit", "-c", cfg, "--log_dir", ref_logs, "--ckpt_dir", str(tmp_path / "ck_ref"),
+                  "--device", "cpu"])
+    got = [r for r in _rows(logs, "plm") if "train/loss" in r]
+    want = [r for r in _rows(ref_logs, "plm") if "train/loss" in r]
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3]
+    for a, b in zip(got, want):
+        for k in ("train/loss", "train/loss_sum", "train/ac10"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=f"{k} step {a['step']}")
+    a = read_checkpoint(os.path.join(ck, "step_3.ckpt"))["state_dict"]
+    b = read_checkpoint(os.path.join(str(tmp_path / "ck_ref"), "step_3.ckpt"))["state_dict"]
+    assert a.keys() == b.keys()
+    for k in b:
+        np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=0, atol=1e-6, err_msg=k)

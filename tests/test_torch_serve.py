@@ -123,7 +123,6 @@ def test_parse_args_keeps_the_jax_flags_and_defaults():
     from megatts2_tpu_torch.serve import parse_args
 
     got, want = vars(parse_args([])), vars(jparse([]))
-    want.pop("n_model")
     assert {k: got[k] for k in want} == want
     assert got["device"] == "cuda"
 
@@ -159,6 +158,27 @@ def test_serve_modes_write_every_wav(fx, tmp_path, capsys, mode):
     assert sorted(wavs) == [f"u{i}" for i in range(len(TEXTS))]
     for sr, w in wavs.values():
         assert sr == 16000 and w.size > 0 and w.size % 256 == 0 and np.isfinite(w).all()
+
+
+def test_serve_batch_on_two_ranks_writes_what_one_process_writes(fx, tmp_path):
+    """``serve`` under a group of 2 ranks (gloo, CPU): each batch split over
+    the data axis after its padding, rank 0 writes every wav under the same
+    names as one process, equal to within one int16 step (fp32 sums of a
+    batch of 1 against one of 2)."""
+    import parallel_workers as pw
+    from megatts2_tpu_torch.serve import main
+
+    extra = ["--batch_size", "2", "--buckets", "32,64", "--frames_per_phone", "8"]
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    main(["--requests", fx["reqs"], "--out_dir", one] + _common(fx) + extra)
+    out = pw.run(2, [("serve_batch", {"argv": ["--requests", fx["reqs"], "--out_dir", two]
+                                      + _common(fx) + extra})], str(tmp_path))
+    assert out["serve_batch"] is None, out["serve_batch"]
+    want, got = _wavs(one), _wavs(two)
+    assert sorted(got) == sorted(want) == [f"u{i}" for i in range(len(TEXTS))]
+    for name, (sr, w) in want.items():
+        assert got[name][0] == sr and got[name][1].shape == w.shape, name
+        np.testing.assert_allclose(got[name][1], w, rtol=0, atol=1, err_msg=name)
 
 
 def test_serve_requires_checkpoints_and_a_manifest(fx):
