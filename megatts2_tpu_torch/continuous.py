@@ -29,9 +29,17 @@ The engine runs on ``device`` (the card by default; tests pass ``"cpu"``)
 with the modules as they are given, cast as ``Megatts`` casts them.  The
 host syncs once per admission wave (the wave's frame counts) and once per
 tick (the previous tick's audio, copied while the next tick runs).
+
+The scheduler takes the tracer's spans (``utils/tracing.py``):
+``engine.admit`` a wave, ``engine.tick`` and ``engine.emit`` a tick, and
+per request ``engine.queue_wait`` and ``engine.first_chunk``, both from
+its ``t_submit_ns`` (``time.perf_counter_ns`` when it was submitted: the
+HTTP server stamps it, ``run`` stamps a list's requests); while the tracer
+is off it reads no clock.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +50,7 @@ from .data import fit_prompt
 from .models.fast_decode import plm_fast_tick
 from .models.megatts import vocode
 from .models.streaming import emit_window, stream_geometry, stream_prep
+from .utils import tracing
 
 
 def engine_init(plm, S: int, L: int, like: torch.Tensor) -> list[torch.Tensor]:
@@ -245,6 +254,11 @@ class ContinuousEngine:
     def _admit(self, pairs: List[Tuple[int, dict]]) -> None:
         """Admit a wave: content prep per group of one phone bucket and one
         prompt-mel length, [the prompts' prefill,] one slot install."""
+        if tracing.enabled():
+            now = time.perf_counter_ns()
+            for _, r in pairs:
+                if "t_submit_ns" in r:
+                    tracing.record("engine.queue_wait", r["t_submit_ns"], now)
         wave_prompted = any(r.get("prompt_codes") is not None for _, r in pairs)
         if wave_prompted and self.Pe == 0:
             raise ValueError("request carries a prosody prompt but the engine was built with "
@@ -308,7 +322,10 @@ class ContinuousEngine:
 
     def run(self, requests: List[dict]) -> Iterator[Tuple[Any, np.ndarray]]:
         """Drive the engine over a list of requests, yielding ``(id, wav)``
-        in completion order."""
+        in completion order; each is submitted when the run starts."""
+        if tracing.enabled():
+            now = time.perf_counter_ns()
+            requests = [{"t_submit_ns": now, **r} for r in requests]
         yield from self._run(list(requests), live=None)
 
     def run_live(self, rq, stop) -> Iterator[Tuple[Any, np.ndarray]]:
@@ -329,7 +346,10 @@ class ContinuousEngine:
 
         def flush(p):
             wavs = p[0].cpu().numpy()
+            now = time.perf_counter_ns() if tracing.enabled() else None
             for req, j, s in p[1]:
+                if j == 0 and now is not None and "t_submit_ns" in req:
+                    tracing.record("engine.first_chunk", req["t_submit_ns"], now)
                 total = totals[id(req)]
                 w = wavs[s]
                 if (j + 1) * self.F > total:
@@ -363,18 +383,21 @@ class ContinuousEngine:
             pairs = [(s, queue.pop(0)) for s in range(self.S)
                      if self.slot_req[s] is None and queue]
             if pairs:
-                self._admit(pairs)
+                with tracing.span("engine.admit", len(pairs)):
+                    self._admit(pairs)
                 for s, req in pairs:
                     bufs[id(req)] = []
                     totals[id(req)] = self.slot_frames[s]
             new_pending = None
             if busy():
                 a_vec, items = self._tick_plan()
-                engine_tick(self.plm, self.carry, self.F // 8)
+                with tracing.span("engine.tick", self.F // 8):
+                    engine_tick(self.plm, self.carry, self.F // 8)
                 self.n_ticks += 1
                 if items:
-                    new_pending = (emit_slots(self.g, self.vocoder, self.carry, a_vec, self.F,
-                                              self.rv, self.rd), items)
+                    with tracing.span("engine.emit", len(items)):
+                        new_pending = (emit_slots(self.g, self.vocoder, self.carry, a_vec,
+                                                  self.F, self.rv, self.rd), items)
             if pending is not None:  # the previous tick's audio, while this one runs
                 yield from flush(pending)
             pending = new_pending

@@ -47,6 +47,7 @@ from ..ops.attention import flash_attention
 from ..ops.masks import NEG_INF, causal_mask, make_attn_mask
 from ..parallel.layers import ModelParallel, tp_cols
 from ..quantization.weight_only import QuantLinear, qdense
+from ..utils import tracing
 
 
 def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -310,10 +311,11 @@ def plm_fast_decode(
     prev = prev0 if prev0 is not None else torch.full(
         (B,), model.cfg.bos_id, dtype=torch.long, device=tc.device)
     codes = []
-    for t in range(T):
-        logits = plm_decode_step(model, tc[:, t], prev, caches, start_pos + t)
-        prev = pick(logits, t, temperature, top_k, generator, gumbel)
-        codes.append(prev)
+    with tracing.span("plm.decode", T):
+        for t in range(T):
+            logits = plm_decode_step(model, tc[:, t], prev, caches, start_pos + t)
+            prev = pick(logits, t, temperature, top_k, generator, gumbel)
+            codes.append(prev)
     return torch.stack(codes, dim=1)
 
 
@@ -328,12 +330,13 @@ def adm_decode_raw(model, tc_latents: torch.Tensor) -> torch.Tensor:
     caches = model.adm.new_cache(B, T, tc)
     prev = torch.zeros(B, dtype=torch.float32, device=tc.device)
     out = []
-    for t in range(T):
-        dt_emb = dense(model.dt_linear_emb, prev[:, None].to(dtype))
-        x = torch.cat([dense(model.tc_linear_emb, tc[:, t]), dt_emb], dim=-1) + model.pe[t].to(dtype)
-        x = model.adm.step(x, caches, t)
-        prev = dense(model.predict_layer, x)[:, 0].float()
-        out.append(prev)
+    with tracing.span("adm.decode", T):
+        for t in range(T):
+            dt_emb = dense(model.dt_linear_emb, prev[:, None].to(dtype))
+            x = torch.cat([dense(model.tc_linear_emb, tc[:, t]), dt_emb], dim=-1)
+            x = model.adm.step(x + model.pe[t].to(dtype), caches, t)
+            prev = dense(model.predict_layer, x)[:, 0].float()
+            out.append(prev)
     return torch.stack(out, dim=1)
 
 

@@ -30,6 +30,7 @@ from ..quantization.vq import EuclideanCodebook
 from ..quantization.weight_only import cast_float_, quantize_
 from ..text.symbol_table import SymbolTable
 from ..text.tokenizer import TextTokenizer
+from ..utils import tracing
 from ..utils.audio import load_wav, peak_normalize, save_wav
 from .adm import MegaADM, adm_infer
 from .hifigan import HiFiGAN
@@ -56,26 +57,33 @@ def max_pool_time(x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 class _StageClock:
-    """Wall seconds per stage into ``times`` (device synchronised at each
-    mark); does nothing when ``times`` is None."""
+    """The stages of :func:`synthesize`: at each stage's mark, a tracer
+    interval ``synth.<stage>`` from the previous mark (nothing while the
+    tracer is off); and, only when ``times`` is a dict, the stage's wall
+    seconds written into it, the device synchronised at each mark."""
 
     def __init__(self, times: Optional[dict], device: torch.device):
         self.times = times
         self.device = device
+        self.t = None  # ns at the last mark, read only when something is timed
         if times is not None:
             self._sync()
-            self.t = time.perf_counter()
+        if times is not None or tracing.enabled():
+            self.t = time.perf_counter_ns()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def __call__(self, name: str) -> None:
-        if self.times is None:
+        if self.t is None:
             return
-        self._sync()
-        now = time.perf_counter()
-        self.times[name] = now - self.t
+        if self.times is not None:
+            self._sync()
+        now = time.perf_counter_ns()
+        if self.times is not None:
+            self.times[name] = (now - self.t) / 1e9
+        tracing.record("synth." + name, self.t, now)
         self.t = now
 
 
@@ -102,7 +110,9 @@ def synthesize(
     mel_hat (B, max_frames, 80), n_frames (B,)); callers trim with
     n_frames*hop.  The PLM options are :func:`plm_infer`'s.  With
     ``stage_times`` a dict, each stage's wall seconds are written into it
-    (the device is synchronised between stages)."""
+    (the device is synchronised between stages).  While the tracer
+    (``utils/tracing.py``) is on, the stages' ``synth.*`` intervals end at
+    the same marks; they synchronise nothing of their own."""
     clock = _StageClock(stage_times, phone_tokens.device)
 
     # 1. content/timbre latent (phone × mel-prompt cross attention)

@@ -23,6 +23,7 @@ from ..config import MegaPLMConfig
 from ..nn.dropout import Draws
 from ..nn.embedding import sinusoidal_table
 from ..quantization.weight_only import QuantLinear, is_int4
+from ..utils import tracing
 from .fast_decode import DecoderStack, dense, plm_fast_decode
 
 
@@ -72,10 +73,11 @@ class MegaPLM(nn.Module):
         attention over the P prompt tokens is the same function, so it takes
         the flash path (kernel B on the card) under ``use_flash``."""
         dtype = self.plm.dtype
-        x = torch.cat([tc.to(dtype), self.pc_embedding(prev_codes).to(dtype)], dim=-1)
-        x = x + self.pe[: x.shape[1]].to(dtype)  # the prompt holds positions [0, P)
-        x = self.plm(x, causal=True, caches=caches)
-        return dense(self.predict_layer, x[:, -1]).float()
+        with tracing.span("plm.prefill", tc.shape[1]):
+            x = torch.cat([tc.to(dtype), self.pc_embedding(prev_codes).to(dtype)], dim=-1)
+            x = x + self.pe[: x.shape[1]].to(dtype)  # the prompt holds positions [0, P)
+            x = self.plm(x, causal=True, caches=caches)
+            return dense(self.predict_layer, x[:, -1]).float()
 
 
 def is_quantized(model: nn.Module) -> bool:

@@ -11,7 +11,14 @@ Three modes, as the JAX CLI:
 * ``--http PORT``: a live server on the engine: ``POST /synthesize``
   ``{"text", "wavs_dir"[, "prompt_cuts" | "prompt_speaker"]}`` → audio/wav,
   ``GET /healthz``, ``GET /metrics``; 413 above ``--max_body_bytes``, 504
-  after ``--request_timeout``.
+  after ``--request_timeout``.  ``/metrics`` is one JSON object: requests
+  served, audio seconds, in flight, queue depth, engine ticks, uptime,
+  utterances a second, slots and slots busy, and under ``engine`` the
+  server's tally of its spans (``utils/tracing.py``, on while the server
+  runs): for each of ``engine.admit``, ``engine.tick``, ``engine.emit``,
+  ``engine.queue_wait``, ``engine.first_chunk`` and, with prosody prompts,
+  ``plm.prefill`` (the host's part of a wave's prefill), its count and the
+  mean, p50 and p95 ms of its last 1024.
 
 ::
 
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 
 from . import HIFIGAN_SR
+from .utils import tracing
 
 def pick_bucket(n_phones: int, frames_per_phone: float, buckets: list) -> int:
     """Smallest bucket covering the estimated frame budget (last = cap)."""
@@ -251,7 +259,7 @@ def run_http(args, tts, _ready_cb=None):
                     "in_flight": in_flight, "queue_depth": rq.qsize(),
                     "engine_ticks": eng.n_ticks, "uptime_s": up,
                     "utt_per_sec": stats["served"] / up, "slots": args.slots,
-                    "slots_busy": eng.slots_busy,
+                    "slots_busy": eng.slots_busy, "engine": spans.summary(),
                 }).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
@@ -288,6 +296,7 @@ def run_http(args, tts, _ready_cb=None):
             ev = threading.Event()
             with results_mu:
                 results[req["id"]] = (ev, None)
+            req["t_submit_ns"] = time.perf_counter_ns()
             rq.put(req)
             if not ev.wait(timeout=args.request_timeout):
                 with results_mu:  # drop the entry so the table cannot leak
@@ -305,6 +314,9 @@ def run_http(args, tts, _ready_cb=None):
     server = ThreadingHTTPServer((args.host, args.http), Handler)
     print(json.dumps({"mode": "http", "host": args.host, "port": server.server_address[1],
                       "slots": args.slots, "device": _device_name(tts)}), flush=True)
+    tracing_was_on = tracing.enabled()
+    tracing.enable()
+    spans = tracing.tally(("engine.", "plm.prefill"))  # for /metrics, before any request
     if _ready_cb is not None:
         threading.Thread(target=_ready_cb, args=(server,), daemon=True).start()
     try:
@@ -313,6 +325,9 @@ def run_http(args, tts, _ready_cb=None):
         stop.set()
         eng_thread.join(timeout=60)
         server.server_close()
+        spans.close()
+        if not tracing_was_on:
+            tracing.disable()
 
 
 def _report(record: dict, done: int, audio_s: float, wall: float) -> dict:

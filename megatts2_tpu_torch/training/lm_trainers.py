@@ -14,6 +14,10 @@ average would shrink JAX's gradient of the global sum by n_data); the
 metrics are the global batch's (numerators and denominators summed), and
 the dropout masks this rank's rows of the global masks.
 
+A train step takes the tracer's ``train.batch_to_device``,
+``train.forward``, ``train.backward`` and ``train.optimizer`` spans
+(``utils/tracing.py``).
+
 A :class:`TrainState` holds the model (fp32 master weights), AdamW, its
 schedule, the dropout generator and the step count; a train step updates
 it in place and returns its metrics as 0-d tensors, so the host waits on
@@ -36,6 +40,7 @@ from ..models import MegaADM, MegaPLM, init_random_
 from ..nn import Draws
 from ..parallel.collectives import data_sum, reduce_grads
 from ..parallel.mesh import Mesh
+from ..utils import tracing
 from .schedules import make_adamw
 
 Metrics = Dict[str, torch.Tensor]
@@ -122,12 +127,17 @@ def _make_steps(loss_fn: Callable) -> tuple[Callable, Callable]:
         mesh = state.mesh
         state.opt.zero_grad(set_to_none=True)
         draws = state.draws or Draws(state.generator, rows=mesh.rows if mesh is not None else None)
-        loss, metrics = loss_fn(state.model, _on(batch, _device(state)), draws, mesh)
-        loss.backward()
-        if mesh is not None:
-            reduce_grads(state.model.parameters(), mesh.data_group, average=False)
-        state.opt.step()
-        state.sched.step()
+        with tracing.span("train.batch_to_device", sum(v.nbytes for v in batch.values())):
+            batch = _on(batch, _device(state))
+        with tracing.span("train.forward"):
+            loss, metrics = loss_fn(state.model, batch, draws, mesh)
+        with tracing.span("train.backward"):
+            loss.backward()
+            if mesh is not None:
+                reduce_grads(state.model.parameters(), mesh.data_group, average=False)
+        with tracing.span("train.optimizer"):
+            state.opt.step()
+            state.sched.step()
         state.step += 1
         return metrics
 

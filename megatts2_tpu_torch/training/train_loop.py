@@ -26,10 +26,16 @@ at the end unless that validation just saved the last step
 (``training/checkpoints.py``: reference layout, top-k by score plus the
 latest).
 
-Beyond JAX's rows, one ``loop/`` row at the end of a run that took steps:
-``steps``, ``step_ms_median`` (host wall from a batch in hand to its
-metrics handled, steps after the run's first), ``loader_wait_ms_median``
-and ``loader_wait_ms_mean`` (the time the loop blocked on the next batch).
+The run turns the tracer on (``utils/tracing.py``; as it was after the
+run): the loop takes ``loop.loader_wait`` (the time it blocked on the next
+batch) and ``loop.step`` (host wall from a batch in hand to its metrics
+handled) around the train step's own spans, which a ``trace_dir`` profile
+shows beside the kernels, and reads every one of its ``loop.*`` spans
+through a tally of its own.  ``steps_per_sec`` is the last ≤50 steps over
+their loader waits and step walls.  Beyond JAX's rows, one ``loop/`` row at
+the end of a run that took steps: ``steps``, ``step_ms_median`` (steps
+after the run's first, or the first alone), ``loader_wait_ms_median`` and
+``loader_wait_ms_mean``.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 
 from ..parallel.mesh import Mesh, shard_batch
-from ..utils.logging import MetricsLogger, ProfilerHook, StepTimer
+from ..utils import tracing
+from ..utils.logging import MetricsLogger, ProfilerHook
 from .checkpoints import latest_checkpoint, restore_checkpoint, save_checkpoint
 
 _END = object()
@@ -97,37 +104,39 @@ def run_training(
     if path:
         restore_checkpoint(path, state)
     logger = MetricsLogger(log_dir, name) if mesh.is_main else _NoLogger()
-    timer = StepTimer()
     profiler = ProfilerHook(trace_dir if mesh.is_main else None)
     step = state.step
     epoch = 0
     n_vals = 0
-    waits, walls = [], []
     saved = None  # the step last saved
+    tracing_was_on = tracing.enabled()
+    tracing.enable()
+    loop = tracing.tally("loop.", keep=None)
     try:
         while step < max_steps:
             n_batches = 0
             batches = iter(train_loader_factory(epoch))
             try:
                 while step < max_steps:
-                    t0 = time.perf_counter()
+                    t0 = time.perf_counter_ns()
                     batch = next(batches, _END)
-                    t1 = time.perf_counter()
                     if batch is _END:
                         break
+                    tracing.record("loop.loader_wait", t0, time.perf_counter_ns())
                     n_batches += 1
-                    profiler.before_step(step)
-                    metrics = train_step(state, shard_batch(batch, mesh, replicate=False))
+                    profiler.before_step(step)  # outside the span: a profile holds it whole
+                    with tracing.span("loop.step"):
+                        metrics = train_step(state, shard_batch(batch, mesh, replicate=False))
+                        m = ({k: float(v) for k, v in metrics.items()}
+                             if (step + 1) % log_every == 0 else None)
                     profiler.after_step(step)
-                    timer.tick()
                     step += 1
-                    if step % log_every == 0:
-                        m = {k: float(v) for k, v in metrics.items()}
-                        m["steps_per_sec"] = timer.steps_per_sec
+                    if m is not None:
+                        steps = loop.durations_ms("loop.step", 50)
+                        m["steps_per_sec"] = 1e3 * len(steps) / (
+                            sum(steps) + sum(loop.durations_ms("loop.loader_wait", 50)))
                         m["host_rss_gb"] = _host_rss_gb()
                         logger.log(step, m, prefix="train/")
-                    waits.append(t1 - t0)
-                    walls.append(time.perf_counter() - t1)
                     if val_every and step % val_every == 0 and eval_step and valid_loader_factory:
                         n_vals += 1
                         vm = _validate(state, eval_step, valid_loader_factory(epoch), artifact_fn,
@@ -143,17 +152,21 @@ def run_training(
             if n_batches == 0:
                 raise ValueError(f"train loader gave no batch in epoch {epoch}")
             epoch += 1
+        waits, walls = loop.durations_ms("loop.loader_wait"), loop.durations_ms("loop.step")
         if waits:
             logger.log(step, {"steps": len(waits),
-                              "step_ms_median": 1e3 * float(np.median(walls[1:] or walls)),
-                              "loader_wait_ms_median": 1e3 * float(np.median(waits)),
-                              "loader_wait_ms_mean": 1e3 * float(np.mean(waits))},
+                              "step_ms_median": float(np.median(walls[1:] or walls)),
+                              "loader_wait_ms_median": float(np.median(waits)),
+                              "loader_wait_ms_mean": float(np.mean(waits))},
                        prefix="loop/")
         if ckpt_dir and saved != step:
             save_checkpoint(ckpt_dir, state, step, keep=keep_ckpts)
     finally:
         profiler.close()
         logger.close()
+        loop.close()
+        if not tracing_was_on:
+            tracing.disable()
     return state
 
 

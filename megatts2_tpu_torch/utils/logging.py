@@ -1,4 +1,4 @@
-"""Metrics logging, step timing and profiler traces (port of
+"""Metrics logging and profiler traces (port of
 ``megatts2_tpu/utils/logging.py``).
 
 ``MetricsLogger`` appends one JSON object per call to
@@ -12,7 +12,6 @@ from __future__ import annotations
 import json
 import os
 import time
-from collections import deque
 from typing import Dict, Optional
 
 
@@ -30,20 +29,6 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._f.close()
-
-
-class StepTimer:
-    """Rolling steps/sec over the last ≤window ticks (updates every tick)."""
-
-    def __init__(self, window: int = 50):
-        self._ticks = deque([time.perf_counter()], maxlen=window + 1)
-        self.steps_per_sec = 0.0
-
-    def tick(self) -> None:
-        self._ticks.append(time.perf_counter())
-        span = self._ticks[-1] - self._ticks[0]
-        if span > 0:
-            self.steps_per_sec = (len(self._ticks) - 1) / span
 
 
 class ProfilerHook:

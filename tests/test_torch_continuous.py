@@ -100,6 +100,37 @@ def test_engine_equals_synthesize_with_a_mid_flight_admission(cascade):
     assert len({v.shape[0] for v in got.values()}) == 3  # three lengths
 
 
+def test_engine_spans_each_request_and_each_tick(cascade):
+    """With the tracer on, a run records one ``engine.queue_wait`` and one
+    ``engine.first_chunk`` a request, an ``engine.tick`` a tick, and waves
+    whose ``engine.admit`` counts sum to the requests."""
+    from megatts2_tpu_torch.utils import tracing
+
+    reqs = _requests(seed=2)
+    eng = _engine(cascade)
+    tracing.drain()
+    tracing.enable()
+    try:
+        got = dict(eng.run(reqs))
+    finally:
+        tracing.disable()
+    spans = tracing.drain()
+    by = {}
+    for name, t0, t1, n in spans:
+        by.setdefault(name, []).append((t0, t1, n))
+    assert set(got) == {r["id"] for r in reqs} and "t_submit_ns" not in reqs[0]
+    assert len(by["engine.queue_wait"]) == len(by["engine.first_chunk"]) == len(reqs)
+    assert len(by["engine.tick"]) == eng.n_ticks > 0
+    assert all(n == F_CHUNK // 8 for _, _, n in by["engine.tick"])
+    assert sum(n for _, _, n in by["engine.admit"]) == len(reqs)
+    assert len(by["engine.emit"]) <= eng.n_ticks
+    assert all(t1 >= t0 for v in by.values() for t0, t1, _ in v)
+    # a list's requests are submitted when the run starts; chunks follow admissions
+    assert len({t0 for k in ("engine.queue_wait", "engine.first_chunk") for t0, _, _ in by[k]}) == 1
+    assert min(t1 for _, t1, _ in by["engine.first_chunk"]) > \
+        min(t1 for _, t1, _ in by["engine.queue_wait"])
+
+
 def test_admit_tp_bucket_pads_and_gives_the_same_output(cascade):
     reqs = _requests(seed=4, tps=(20, 31, 9))
     got = dict(_engine(cascade, admit_tp_bucket=32).run(reqs))

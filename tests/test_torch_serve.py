@@ -256,6 +256,15 @@ def test_http_serves_concurrent_requests_and_refuses_bad_ones(fx):
         assert status == 200 and ctype == "audio/wav" and sr == 16000
         assert w.size > 0 and w.size % 256 == 0
     assert metrics["served"] == 5 and metrics["in_flight"] == 0 and metrics["engine_ticks"] > 0
+    eng = metrics["engine"]  # the server's tally of its engine and prefill spans
+    assert eng["engine.tick"]["count"] == metrics["engine_ticks"]
+    assert eng["engine.queue_wait"]["count"] == eng["engine.first_chunk"]["count"] == 5
+    assert set(eng) >= {"engine.admit", "engine.tick", "engine.emit"}
+    assert eng["plm.prefill"]["count"] >= 1  # the prompted request's wave
+    assert all(k.startswith("engine.") for k in set(eng) - {"plm.prefill"})
+    for s in eng.values():
+        assert set(s) == {"count", "mean_ms", "p50_ms", "p95_ms"}
+        assert 0 <= s["p50_ms"] <= s["p95_ms"]
 
 
 def test_http_times_out_with_504(fx):
