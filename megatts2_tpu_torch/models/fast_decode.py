@@ -22,6 +22,15 @@ dtype, a ``QuantLinear`` (int8 or packed int4,
 ``quantization/weight_only.py``) accumulates in fp32 and applies its fp32
 scale and bias before the cast.
 
+On a CUDA device :func:`plm_fast_decode` replays its step as one CUDA graph
+(:class:`PLMStepGraph`): the step at static shapes is
+:meth:`DecoderLayer.step_slots` with every row at one position held on the
+device, which attends the whole cache masked above it, the JAX loop's own
+masked attention.  The graph is captured once per (B, L, dtype, device) and
+addresses of the model's parameters and buffers, and replayed once a code;
+the choice of the code stays outside it.  On the CPU the loop runs eagerly,
+one :meth:`DecoderLayer.step` a layer.
+
 The training forward computes in the dtype of its input over fp32 master
 weights, with the casts of flax's ``dtype=`` written out: a Dense casts its
 weight and bias to the compute dtype, LayerNorm keeps fp32 statistics and
@@ -34,6 +43,11 @@ explicit ``torch.Generator`` (``nn/dropout.py``).
 """
 from __future__ import annotations
 
+import collections
+import functools
+import itertools
+import threading
+import weakref
 from typing import Optional
 
 import torch
@@ -286,6 +300,114 @@ def pick(logits: torch.Tensor, t: int, temperature: float, top_k: int,
     return (lg + noise).argmax(dim=-1)
 
 
+class PLMStepGraph:
+    """One PLM decode step at static shapes, B rows over a cache of L
+    positions, and the buffers it reads and writes: the caches (one
+    (layers, B, L, 2D) buffer, ``caches`` its per-layer views), the position
+    ``pos`` (B,), the step's content latent ``tc_t`` and previous code
+    ``prev``, and the fp32 ``logits`` it leaves.  :meth:`capture` records
+    :meth:`step` as a CUDA graph; :meth:`decode` replays it once a code, or
+    runs :meth:`step` where nothing was captured.  It holds no reference to
+    the model, whose weights the graph reads at the addresses of its
+    capture."""
+
+    def __init__(self, model, B: int, L: int, device: torch.device):
+        dtype = model.plm.dtype
+        D = model.cfg.d_model
+        self.cache = torch.zeros(len(model.plm.layers), B, L, 2 * D, dtype=dtype, device=device)
+        self.caches = list(self.cache.unbind(0))
+        self.pos = torch.zeros(B, dtype=torch.long, device=device)
+        self.rows = torch.arange(B, device=device)
+        self.tc_t = torch.zeros(B, model.cfg.tc_latent_dim, dtype=dtype, device=device)
+        self.prev = torch.zeros(B, dtype=torch.long, device=device)
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def step(self, model) -> None:
+        """:func:`plm_decode_step` at position ``pos`` through
+        :meth:`DecoderLayer.step_slots` (the whole cache, masked above the
+        position), then ``pos`` advanced by one."""
+        dtype = self.cache.dtype
+        x = torch.cat([self.tc_t, model.pc_embedding(self.prev).to(dtype)], dim=-1)
+        x = x + model.pe[self.pos].to(dtype)
+        for layer, ckv in zip(model.plm.layers, self.caches):
+            x = layer.step_slots(x, ckv, self.pos, self.rows)
+        self.pos += 1
+        self.logits = dense(model.predict_layer, x).float()
+
+    def capture(self, model) -> None:
+        """Record :meth:`step` as a CUDA graph after one warm-up step, both
+        on a side stream.  Each writes the cache and advances ``pos``, which
+        :meth:`decode` resets."""
+        with tracing.span("plm.capture", self.cache.shape[2]), torch.cuda.device(self.cache.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.step(model)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                self.step(model)
+        plm_fast_decode.graph_captures += 1
+
+    def decode(self, model, tc: torch.Tensor, temperature: float, top_k: int,
+               generator: Optional[torch.Generator], gumbel: Optional[torch.Tensor],
+               init_cache: Optional[list[torch.Tensor]], start_pos: int,
+               prev0: Optional[torch.Tensor]) -> torch.Tensor:
+        """:func:`plm_fast_decode`'s codes (B, T) for tc (B, T, D_tc) in the
+        compute dtype, T = L - ``start_pos``: the caches zeroed or the
+        prompt's copied in, then a step and a :func:`pick` a code."""
+        if init_cache is None:
+            self.cache.zero_()
+        else:
+            for dst, src in zip(self.caches, init_cache):
+                dst.copy_(src[:, : dst.shape[1]])
+        self.pos.fill_(start_pos)
+        if prev0 is None:
+            self.prev.fill_(model.cfg.bos_id)
+        else:
+            self.prev.copy_(prev0)
+        if self.graph is None:
+            run = functools.partial(self.step, model)
+        else:
+            run = self.graph.replay
+            plm_fast_decode.graph_replays += tc.shape[1]
+        codes = []
+        for t in range(tc.shape[1]):
+            self.tc_t.copy_(tc[:, t])
+            run()
+            code = pick(self.logits, t, temperature, top_k, generator, gumbel)
+            self.prev.copy_(code)
+            codes.append(code)
+        return torch.stack(codes, dim=1)
+
+
+GRAPHS_KEPT = 8  # captured steps kept a model; the least recently used goes first
+_graphs: "weakref.WeakKeyDictionary[nn.Module, collections.OrderedDict]" = \
+    weakref.WeakKeyDictionary()
+_graphs_lock = threading.Lock()  # the graphs' buffers serve one decode at a time
+
+
+def step_graph(model, B: int, L: int, device: torch.device) -> PLMStepGraph:
+    """The captured step of ``model`` for B rows and L positions on
+    ``device``, captured at its first use.  Besides the shapes, the dtype
+    and the device, the key holds the address of every parameter and buffer
+    of the model: a weight reassigned (``p.data = ...``, a cast) captures
+    anew, while one updated in place (``load_state_dict``, an optimizer
+    step) keeps its graph, which reads it where it is."""
+    key = (B, L, model.plm.dtype, device,
+           tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())))
+    graphs = _graphs.setdefault(model, collections.OrderedDict())
+    g = graphs.pop(key, None)
+    if g is None:
+        g = PLMStepGraph(model, B, L, device)
+        g.capture(model)
+    graphs[key] = g
+    while len(graphs) > GRAPHS_KEPT:
+        graphs.popitem(last=False)
+    return g
+
+
 @torch.inference_mode()
 def plm_fast_decode(
     model,
@@ -302,11 +424,17 @@ def plm_fast_decode(
     (B, T) int64.  Greedy unless ``temperature > 0``, which needs a
     ``generator`` on the model's device or injected ``gumbel`` noise.
     ``init_cache``/``start_pos``/``prev0`` carry a prompt prefilled by
-    ``MegaPLM.prefill``."""
+    ``MegaPLM.prefill``.  On a CUDA device the step is a replayed CUDA graph
+    (:func:`step_graph`); counters: ``plm_fast_decode.graph_captures``,
+    ``plm_fast_decode.graph_replays`` (steps)."""
     B, T, _ = tc_latent.shape
     if temperature > 0 and generator is None and gumbel is None:
         raise ValueError("sampling (temperature > 0) needs a generator or injected gumbel noise")
     tc = tc_latent.to(model.plm.dtype)
+    if tc.is_cuda:
+        with _graphs_lock, tracing.span("plm.decode", T):
+            return step_graph(model, B, start_pos + T, tc.device).decode(
+                model, tc, temperature, top_k, generator, gumbel, init_cache, start_pos, prev0)
     caches = init_cache if init_cache is not None else model.plm.new_cache(B, start_pos + T, tc)
     prev = prev0 if prev0 is not None else torch.full(
         (B,), model.cfg.bos_id, dtype=torch.long, device=tc.device)
@@ -317,6 +445,10 @@ def plm_fast_decode(
             prev = pick(logits, t, temperature, top_k, generator, gumbel)
             codes.append(prev)
     return torch.stack(codes, dim=1)
+
+
+plm_fast_decode.graph_captures = 0
+plm_fast_decode.graph_replays = 0
 
 
 @torch.inference_mode()
