@@ -14,6 +14,13 @@ by kmeans on the first training batch, as the JAX default
 rows that seed kmeans and replace expired codes come from a ``Draws``
 (``nn/dropout.py``): drawn from a generator, or injected.
 
+Whether the codebook is initialised is kept on the host too, so that a
+train step does not wait for the device to read ``inited``: the flag is
+read from the device once, then again only after the buffer was written
+or replaced from outside the train step (``load_state_dict``, a
+checkpoint restore through the bridge, a broadcast on a mesh, ``.to``),
+which the tensor's version counter and identity show.
+
 ``EuclideanCodebook(fixed_expiry=True)`` (the JAX default, and what the
 models use) also refreshes ``embed_avg`` and ``cluster_size`` of an
 expired code so that the replacement survives the EMA renormalisation;
@@ -73,6 +80,17 @@ class EuclideanCodebook(nn.Module):
         self.register_buffer("cluster_size", torch.zeros(codebook_size))
         self.register_buffer("embed", torch.zeros(codebook_size, dim))
         self.register_buffer("embed_avg", torch.zeros(codebook_size, dim))
+        # (id, version, value) of the ``inited`` tensor as last read or written here
+        self._inited_seen = None
+
+    def is_inited(self) -> bool:
+        """``inited`` as a bool, read from the device only when the buffer
+        changed since this codebook last read or wrote it."""
+        t = self.inited
+        seen = self._inited_seen
+        if seen is None or seen[0] != id(t) or seen[1] != t._version:
+            seen = self._inited_seen = (id(t), t._version, bool(t.item() >= 0.5))
+        return seen[2]
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, self.dim).float()
@@ -98,7 +116,7 @@ class EuclideanCodebook(nn.Module):
                 rows = slice(first, first + flat.shape[0])
                 flat = gather_rows(flat, self.mesh)
             n, K = flat.shape[0], self.codebook_size
-            if self.inited.item() < 0.5:
+            if not self.is_inited():
                 embed, bins = _kmeans(flat, K, KMEANS_ITERS, draws.indices(n, K, flat.device))
                 embed_avg, cluster_size = embed, bins
             else:
@@ -118,6 +136,7 @@ class EuclideanCodebook(nn.Module):
             total = cluster_size.sum()
             smoothed = (cluster_size + EPSILON) / (total + K * EPSILON) * total
             self.inited.fill_(1.0)
+            self._inited_seen = (id(self.inited), self.inited._version, True)
             self.cluster_size.copy_(cluster_size)
             self.embed_avg.copy_(embed_avg)
             self.embed.copy_(embed_avg / smoothed[:, None])

@@ -31,8 +31,14 @@ BatchNorms keep global statistics (``quantization/vq.py``,
 The step computes in ``train_dtype`` over fp32 master weights, the casts
 written out in each layer; the losses, the codebook and the optimizers are
 fp32.  Batches are dicts of numpy arrays in ``GANBatchBuilder``'s form;
-``mel_targets`` and ``mel_timbres`` arrive as fp32.  The metrics are 0-d
-tensors, read by the host only where the loop logs them.
+``mel_targets`` and ``mel_timbres`` arrive as fp16 or fp32.  The metrics
+are 0-d tensors, read by the host only where the loop logs them.
+
+A train step takes the tracer's spans (``utils/tracing.py``), none of
+which synchronises: ``gan.batch_to_device`` (``n`` = bytes handed over),
+``gan.g_forward`` (``n`` = target frames, rows × padded length),
+``gan.d_step`` (``n`` = rows), ``gan.g_step`` (the adversarial pass, the
+loss, its backward and AdamW) and, with ``g_ema_decay`` > 0, ``gan.ema``.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from ..nn import Draws
 from ..parallel.collectives import data_mean, reduce_grads
 from ..parallel.mesh import Mesh, full_batch
 from ..quantization.vq import EuclideanCodebook
+from ..utils import tracing
 from .lm_trainers import Metrics, _on, train_device, compute_dtype
 from .schedules import make_adamw
 
@@ -108,8 +115,9 @@ def make_gan_train_step(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig,
         if tcfg.g_ema_decay > 0 and state.g_ema is None:
             state.g_ema = {n: p.detach().clone() for n, p in g.named_parameters()}
         mesh = state.mesh
-        b = _on(batch, next(g.parameters()).device)
-        T = batch["mel_targets"].shape[1]
+        with tracing.span("gan.batch_to_device", sum(v.nbytes for v in batch.values())):
+            b = _on(batch, next(g.parameters()).device)
+        B, T = batch["mel_targets"].shape[:2]
         lens = full_batch(batch).get("mel_target_lens")
         max_len = min(int(np.max(lens)), T) if lens is not None else T
         starts = draws.starts([max(max_len - wl, 0) for wl in d_cfg.time_lengths])
@@ -117,34 +125,37 @@ def make_gan_train_step(g_cfg: MegaGConfig, d_cfg: DiscriminatorConfig,
         def disc(mel):
             return d(mel, starts, True, max_len, draws, dtype)["y"].float()
 
-        y_hat, commit, vq_loss = g(*_g_inputs(b), True, draws, dtype)
-        y_hat = y_hat.float()
-        y = b["mel_targets"].float()
+        with tracing.span("gan.g_forward", B * T):
+            y_hat, commit, vq_loss = g(*_g_inputs(b), True, draws, dtype)
+            y_hat = y_hat.float()
+            y = b["mel_targets"].float()
 
-        state.d_opt.zero_grad(set_to_none=True)
-        d_real = 0.5 * ((disc(y) - 1.0) ** 2).mean()
-        d_fake = 0.5 * (disc(y_hat.detach()) ** 2).mean()
-        d_loss = d_real + d_fake
-        d_loss.backward()
-        if mesh is not None:
-            reduce_grads(d.parameters(), mesh.data_group, average=True)
-        state.d_opt.step()
-        state.d_sched.step()
+        with tracing.span("gan.d_step", B):
+            state.d_opt.zero_grad(set_to_none=True)
+            d_real = 0.5 * ((disc(y) - 1.0) ** 2).mean()
+            d_fake = 0.5 * (disc(y_hat.detach()) ** 2).mean()
+            d_loss = d_real + d_fake
+            d_loss.backward()
+            if mesh is not None:
+                reduce_grads(d.parameters(), mesh.data_group, average=True)
+            state.d_opt.step()
+            state.d_sched.step()
 
-        g_params = list(g.parameters())
-        state.g_opt.zero_grad(set_to_none=True)
-        g_adv = 0.5 * ((disc(y_hat) - 1.0) ** 2).mean()
-        g_re = (y - y_hat).abs().mean()
-        g_loss = (g_re + commit * tcfg.G_commit_loss_coeff + vq_loss * tcfg.G_vq_loss_coeff
-                  + g_adv * tcfg.G_adv_loss_coeff)
-        g_loss.backward(inputs=g_params)
-        if mesh is not None:
-            reduce_grads(g_params, mesh.data_group, average=True)
-        state.g_opt.step()
-        state.g_sched.step()
+        with tracing.span("gan.g_step"):
+            g_params = list(g.parameters())
+            state.g_opt.zero_grad(set_to_none=True)
+            g_adv = 0.5 * ((disc(y_hat) - 1.0) ** 2).mean()
+            g_re = (y - y_hat).abs().mean()
+            g_loss = (g_re + commit * tcfg.G_commit_loss_coeff + vq_loss * tcfg.G_vq_loss_coeff
+                      + g_adv * tcfg.G_adv_loss_coeff)
+            g_loss.backward(inputs=g_params)
+            if mesh is not None:
+                reduce_grads(g_params, mesh.data_group, average=True)
+            state.g_opt.step()
+            state.g_sched.step()
         if state.g_ema is not None:
             k = tcfg.g_ema_decay
-            with torch.no_grad():
+            with tracing.span("gan.ema"), torch.no_grad():
                 for name, p in g.named_parameters():
                     e = state.g_ema[name]
                     e.copy_(e * k + p * (1.0 - k))

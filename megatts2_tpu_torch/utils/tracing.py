@@ -42,7 +42,12 @@ Span names, each one interval a call (never one a decode step):
   bytes handed over), ``train.forward``, ``train.backward`` (with the
   gradients' reduction on a mesh), ``train.optimizer``; the loop
   (``training/train_loop.py``, which turns the tracer on for its run):
-  ``loop.loader_wait``, ``loop.step``;
+  ``loop.loader_wait``, ``loop.step``; the VQ-GAN step
+  (``training/gan_trainer.py``): ``gan.batch_to_device`` (``n`` = bytes),
+  ``gan.g_forward`` (``n`` = target frames, rows × padded length),
+  ``gan.d_step`` (``n`` = rows: both passes, the backward and D's AdamW),
+  ``gan.g_step`` (the adversarial pass, the loss, its backward and G's
+  AdamW) and, with an EMA generator, ``gan.ema``;
 * the serving engine (``continuous.py``): ``engine.admit`` (``n`` =
   requests), ``engine.tick`` (``n`` = codes a slot), ``engine.emit``
   (``n`` = chunks), and per request ``engine.queue_wait`` (submission to

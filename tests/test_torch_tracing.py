@@ -11,7 +11,9 @@ the port takes with it, on the CPU at tiny widths.
   outputs are bitwise equal with the tracer on and off, and ``stage_times``
   is still filled.
 * A PLM train step takes the four ``train.*`` spans, ``n`` of
-  ``train.batch_to_device`` the batch's bytes; ``run_training``'s ``loop/``
+  ``train.batch_to_device`` the batch's bytes; a GAN train step its
+  ``gan.*`` spans in order, with their ``n`` (``gan.ema`` only with an EMA
+  generator), and none with the tracer off; ``run_training``'s ``loop/``
   row is read from its ``loop.*`` spans, and the tracer and its buffer are
   left as found; a ``trace_dir`` profile holds each profiled step's loop
   and step spans.
@@ -293,3 +295,38 @@ def test_a_trace_dir_profile_holds_the_loop_and_step_spans(tmp_path):
     assert names["loop.step"] == 3  # steps 10, 11 and 12, each whole
     for name in ("train.batch_to_device", "train.forward", "train.backward", "train.optimizer"):
         assert names[name] == 3, name
+
+
+@pytest.mark.parametrize("ema", [0.0, 0.999])
+def test_a_gan_step_takes_its_spans_in_order(ema):
+    from megatts2_tpu_torch.config import DiscriminatorConfig
+    from megatts2_tpu_torch.training import create_gan_state, make_gan_train_step
+
+    g_cfg = MegaGConfig(
+        mrte=MRTEConfig(mel_stride=4, mel_n_layer=1, mel_n_stack=1, mel_n_block=1,
+                        content_ff_dim=32, content_n_heads=2, content_n_layers=1, hidden_size=16,
+                        phone_vocab_size=40),
+        vqpe=VQPEConfig(hidden_size=16, kernel_size=3, n_layers=1, n_stacks=1, n_blocks=1,
+                        vq_bins=32, vq_dim=8),
+        kernel_size=3, hidden_size=16, decoder_n_stack=1, decoder_n_block=1)
+    d_cfg = DiscriminatorConfig(time_lengths=(8, 16), hidden_size=8)
+    tcfg = TrainConfig(warmup_steps=2, max_steps=100, train_dtype="float32", g_ema_decay=ema)
+    state = create_gan_state(g_cfg, d_cfg, tcfg, device="cpu")
+    step = make_gan_train_step(g_cfg, d_cfg, tcfg)
+    rng = np.random.RandomState(0)
+    B, Tp, T = 2, 6, 64
+    batch = {"duration_tokens": rng.randint(1, 8, (B, Tp)).astype(np.int32),
+             "phone_tokens": rng.randint(0, 40, (B, Tp)).astype(np.int32),
+             "tokens_lens": np.full((B,), Tp, np.int32),
+             "mel_timbres": rng.randn(B, 48, 80).astype(np.float16),
+             "mel_targets": rng.randn(B, T, 80).astype(np.float16),
+             "mel_target_lens": np.array([60, 50], np.int32)}
+    step(state, batch)
+    assert tracing.drain() == []  # off: nothing
+    tracing.enable()
+    step(state, batch)
+    spans = tracing.drain()
+    names = ["gan.batch_to_device", "gan.g_forward", "gan.d_step", "gan.g_step"]
+    assert [s[0] for s in spans] == names + (["gan.ema"] if ema else [])
+    assert [s[3] for s in spans[:4]] == [sum(v.nbytes for v in batch.values()), B * T, B, 0]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
