@@ -22,14 +22,16 @@ dtype, a ``QuantLinear`` (int8 or packed int4,
 ``quantization/weight_only.py``) accumulates in fp32 and applies its fp32
 scale and bias before the cast.
 
-On a CUDA device :func:`plm_fast_decode` replays its step as one CUDA graph
-(:class:`PLMStepGraph`): the step at static shapes is
-:meth:`DecoderLayer.step_slots` with every row at one position held on the
-device, which attends the whole cache masked above it, the JAX loop's own
-masked attention.  The graph is captured once per (B, L, dtype, device) and
-addresses of the model's parameters and buffers, and replayed once a code;
-the choice of the code stays outside it.  On the CPU the loop runs eagerly,
-one :meth:`DecoderLayer.step` a layer.
+On a CUDA device :func:`plm_fast_decode` and :func:`adm_decode_raw` replay
+their step as one CUDA graph (:class:`PLMStepGraph`, :class:`ADMStepGraph`):
+the step at static shapes is :meth:`DecoderLayer.step_slots` with every row
+at one position held on the device, which attends the whole cache masked
+above it, the JAX loop's own masked attention.  The graph is captured once
+per (B, L, dtype, device) and addresses of the model's parameters and
+buffers (:func:`step_graph`).  The PLM's is replayed once a code, the choice
+of the code staying outside it; the ADM's feeds its raw prediction back on
+the device, so its T replays follow one another with no host work between.
+On the CPU the loops run eagerly, one :meth:`DecoderLayer.step` a layer.
 
 The training forward computes in the dtype of its input over fp32 master
 weights, with the casts of flax's ``dtype=`` written out: a Dense casts its
@@ -300,6 +302,22 @@ def pick(logits: torch.Tensor, t: int, temperature: float, top_k: int,
     return (lg + noise).argmax(dim=-1)
 
 
+def capture_step(g, model, name: str) -> None:
+    """Record ``g.step(model)`` as the CUDA graph ``g.graph`` after one
+    warm-up step, both on a side stream, inside the span ``name`` (``n`` =
+    the cache's length).  Each step writes the cache and advances ``g.pos``,
+    which the decode resets."""
+    with tracing.span(name, g.cache.shape[2]), torch.cuda.device(g.cache.device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            g.step(model)
+        torch.cuda.current_stream().wait_stream(side)
+        g.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g.graph, stream=side):
+            g.step(model)
+
+
 class PLMStepGraph:
     """One PLM decode step at static shapes, B rows over a cache of L
     positions, and the buffers it reads and writes: the caches (one
@@ -310,6 +328,10 @@ class PLMStepGraph:
     runs :meth:`step` where nothing was captured.  It holds no reference to
     the model, whose weights the graph reads at the addresses of its
     capture."""
+
+    @staticmethod
+    def stack(model) -> DecoderStack:
+        return model.plm
 
     def __init__(self, model, B: int, L: int, device: torch.device):
         dtype = model.plm.dtype
@@ -336,18 +358,8 @@ class PLMStepGraph:
         self.logits = dense(model.predict_layer, x).float()
 
     def capture(self, model) -> None:
-        """Record :meth:`step` as a CUDA graph after one warm-up step, both
-        on a side stream.  Each writes the cache and advances ``pos``, which
-        :meth:`decode` resets."""
-        with tracing.span("plm.capture", self.cache.shape[2]), torch.cuda.device(self.cache.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.step(model)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):
-                self.step(model)
+        """:func:`capture_step` in the span ``plm.capture``."""
+        capture_step(self, model, "plm.capture")
         plm_fast_decode.graph_captures += 1
 
     def decode(self, model, tc: torch.Tensor, temperature: float, top_k: int,
@@ -382,25 +394,94 @@ class PLMStepGraph:
         return torch.stack(codes, dim=1)
 
 
+class ADMStepGraph:
+    """One ADM decode step at static shapes, B rows over a cache of L = T
+    positions, and the buffers it reads and writes: the caches (one
+    (layers, B, L, 2D) buffer, ``caches`` its per-layer views), the position
+    ``pos`` (B,), the whole content latent ``tc`` (B, L, D_tc) in the
+    compute dtype, the fed-back raw prediction ``prev`` (B,) fp32 and the
+    raw predictions ``out`` (B, L) fp32.  :meth:`capture` records
+    :meth:`step` as a CUDA graph; :meth:`decode` replays it T times, or runs
+    :meth:`step` where nothing was captured.  Like :class:`PLMStepGraph` it
+    holds no reference to the model."""
+
+    @staticmethod
+    def stack(model) -> DecoderStack:
+        return model.adm
+
+    def __init__(self, model, B: int, L: int, device: torch.device):
+        dtype = model.adm.dtype
+        D = model.cfg.d_model
+        self.cache = torch.zeros(len(model.adm.layers), B, L, 2 * D, dtype=dtype, device=device)
+        self.caches = list(self.cache.unbind(0))
+        self.pos = torch.zeros(B, dtype=torch.long, device=device)
+        self.rows = torch.arange(B, device=device)
+        self.tc = torch.zeros(B, L, model.cfg.tc_latent_dim, dtype=dtype, device=device)
+        self.prev = torch.zeros(B, dtype=torch.float32, device=device)
+        self.out = torch.zeros(B, L, dtype=torch.float32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def step(self, model) -> None:
+        """One step of :func:`adm_decode_raw`'s loop at position ``pos``
+        through :meth:`DecoderLayer.step_slots` (the whole cache, masked
+        above the position): its raw prediction into ``prev`` and
+        ``out[:, pos]``, then ``pos`` advanced by one."""
+        dtype = self.cache.dtype
+        dt_emb = dense(model.dt_linear_emb, self.prev[:, None].to(dtype))
+        x = torch.cat([dense(model.tc_linear_emb, self.tc[self.rows, self.pos]), dt_emb], dim=-1)
+        x = x + model.pe[self.pos].to(dtype)
+        for layer, ckv in zip(model.adm.layers, self.caches):
+            x = layer.step_slots(x, ckv, self.pos, self.rows)
+        self.prev.copy_(dense(model.predict_layer, x)[:, 0].float())
+        self.out.index_put_((self.rows, self.pos), self.prev)
+        self.pos += 1
+
+    def capture(self, model) -> None:
+        """:func:`capture_step` in the span ``adm.capture``."""
+        capture_step(self, model, "adm.capture")
+        _adm_counts.graph_captures += 1
+
+    def decode(self, model, tc: torch.Tensor) -> torch.Tensor:
+        """:func:`adm_decode_raw`'s predictions (B, T) for tc (B, T, D_tc)
+        in the compute dtype, T = L: the caches, ``prev`` and ``pos``
+        zeroed, ``tc`` copied in, then T steps.  Returns a copy of ``out``,
+        which the next decode overwrites."""
+        self.cache.zero_()
+        self.prev.zero_()
+        self.pos.zero_()
+        self.tc.copy_(tc)
+        T = tc.shape[1]
+        if self.graph is None:
+            for _ in range(T):
+                self.step(model)
+        else:
+            for _ in range(T):
+                self.graph.replay()
+            _adm_counts.graph_replays += T
+        return self.out.clone()
+
+
 GRAPHS_KEPT = 8  # captured steps kept a model; the least recently used goes first
 _graphs: "weakref.WeakKeyDictionary[nn.Module, collections.OrderedDict]" = \
     weakref.WeakKeyDictionary()
 _graphs_lock = threading.Lock()  # the graphs' buffers serve one decode at a time
 
 
-def step_graph(model, B: int, L: int, device: torch.device) -> PLMStepGraph:
-    """The captured step of ``model`` for B rows and L positions on
-    ``device``, captured at its first use.  Besides the shapes, the dtype
-    and the device, the key holds the address of every parameter and buffer
-    of the model: a weight reassigned (``p.data = ...``, a cast) captures
-    anew, while one updated in place (``load_state_dict``, an optimizer
-    step) keeps its graph, which reads it where it is."""
-    key = (B, L, model.plm.dtype, device,
+def step_graph(model, B: int, L: int, device: torch.device, kind: type = PLMStepGraph):
+    """The captured step of ``model`` (a ``kind``: :class:`PLMStepGraph` or
+    :class:`ADMStepGraph`) for B rows and L positions on ``device``,
+    captured at its first use.  Besides the shapes, the compute dtype and
+    the device, the key holds the address of every parameter and buffer of
+    the model: a weight reassigned (``p.data = ...``, a cast) captures anew,
+    while one updated in place (``load_state_dict``, an optimizer step)
+    keeps its graph, which reads it where it is.  The caller holds
+    ``_graphs_lock``."""
+    key = (B, L, kind.stack(model).dtype, device,
            tuple(t.data_ptr() for t in itertools.chain(model.parameters(), model.buffers())))
     graphs = _graphs.setdefault(model, collections.OrderedDict())
     g = graphs.pop(key, None)
     if g is None:
-        g = PLMStepGraph(model, B, L, device)
+        g = kind(model, B, L, device)
         g.capture(model)
     graphs[key] = g
     while len(graphs) > GRAPHS_KEPT:
@@ -455,10 +536,16 @@ plm_fast_decode.graph_replays = 0
 def adm_decode_raw(model, tc_latents: torch.Tensor) -> torch.Tensor:
     """Raw duration predictions (B, T) fp32.  Each step feeds back the
     previous RAW float prediction (0 at the first step), as the reference
-    loop does.  Int8 / int4 layers take the quantized dense."""
+    loop does.  Int8 / int4 layers take the quantized dense.  On a CUDA
+    device the step is a replayed CUDA graph (:class:`ADMStepGraph`, from
+    :func:`step_graph`); counters: ``adm_decode_raw.graph_captures``,
+    ``adm_decode_raw.graph_replays`` (steps)."""
     B, T, _ = tc_latents.shape
     dtype = model.adm.dtype
     tc = tc_latents.to(dtype)
+    if tc.is_cuda:
+        with _graphs_lock, tracing.span("adm.decode", T):
+            return step_graph(model, B, T, tc.device, ADMStepGraph).decode(model, tc)
     caches = model.adm.new_cache(B, T, tc)
     prev = torch.zeros(B, dtype=torch.float32, device=tc.device)
     out = []
@@ -470,6 +557,11 @@ def adm_decode_raw(model, tc_latents: torch.Tensor) -> torch.Tensor:
             prev = dense(model.predict_layer, x)[:, 0].float()
             out.append(prev)
     return torch.stack(out, dim=1)
+
+
+adm_decode_raw.graph_captures = 0
+adm_decode_raw.graph_replays = 0
+_adm_counts = adm_decode_raw  # the counters' owner, whatever later rebinds the module's name
 
 
 def adm_fast_decode(model, tc_latents: torch.Tensor) -> torch.Tensor:

@@ -36,8 +36,9 @@ Span names, each one interval a call (never one a decode step):
   (recorded at the stage clock's marks, so without a ``record_function``);
   ``adm.decode`` and ``plm.decode`` around the KV-cached loops (``n`` = T
   steps), ``plm.prefill`` around a prompt's prefill (``n`` = its length),
-  ``plm.capture`` around the capture of the PLM's decode step as a CUDA
-  graph (``models/fast_decode.py``; ``n`` = the cache's length L);
+  ``plm.capture`` and ``adm.capture`` around the capture of the PLM's and
+  the ADM's decode step as a CUDA graph (``models/fast_decode.py``; ``n`` =
+  the cache's length L);
 * training (``training/lm_trainers.py``): ``train.batch_to_device`` (``n`` =
   bytes handed over), ``train.forward``, ``train.backward`` (with the
   gradients' reduction on a mesh), ``train.optimizer``; the loop

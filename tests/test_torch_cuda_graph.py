@@ -14,12 +14,25 @@ eager loop (``plm_decode_step``, which attends only the positions written)
 the replay's logits, teacher-forced, agree within 2e-2 of the largest: bf16
 products summed over another number of positions, through 12 layers.  The
 counters: a shape seen before replays without a capture, a new (B, L)
-captures once, and a weight reassigned captures again."""
+captures once, and a weight reassigned captures again.
+
+The ADM decode replayed as a CUDA graph (``fast_decode.adm_decode_raw`` on
+the card) at the same geometry: B = 8 rows of T = 64 phones, the widths of
+``configs/config_adm.yaml`` (``tc_emb_dim`` 512: d_model 768, head dim 96),
+seeded random weights, bf16.  Its raw predictions equal those of the same
+step run eagerly.  Against the sliced eager loop, which attends only the
+positions written and feeds back its own predictions, they agree within
+6e-2 of the largest: bf16 products summed over another number of positions,
+through 8 layers and 64 steps of feedback (1.0-4.0% over 12 inputs on an
+H100; bf16 against fp32 on the CPU reads 2%).  Rounded durations may then
+differ by one frame, only where a raw value lies within that tolerance of a
+.5 boundary, and in under 5% of the phones (0-4 of 512 on those inputs).  The tensor a decode returns is its own, untouched by the next
+decode."""
 import pytest
 import torch
 
-from megatts2_tpu_torch.config import MegaPLMConfig
-from megatts2_tpu_torch.models import MegaPLM
+from megatts2_tpu_torch.config import MegaADMConfig, MegaPLMConfig
+from megatts2_tpu_torch.models import MegaADM, MegaPLM
 from megatts2_tpu_torch.models import fast_decode as fd
 from megatts2_tpu_torch.models.megatts import init_random_
 from megatts2_tpu_torch.quantization.weight_only import cast_float_, quantize_
@@ -157,3 +170,122 @@ def test_graph_counters_and_capture_span(plm):
     assert fd.plm_fast_decode.graph_captures == c0 + 2
     assert torch.equal(got, _eager(plm, tc))
     w.data = w.data.flip(0).contiguous()
+
+
+@pytest.fixture(scope="module")
+def adm():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = init_random_(MegaADM(MegaADMConfig(tc_emb_dim=512)), torch.Generator().manual_seed(0))
+    return model.to("cuda", torch.bfloat16).eval()
+
+
+def _tc_adm(model, seed, b=B, n=T):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(b, n, model.cfg.tc_latent_dim, generator=g).to("cuda")
+
+
+def _adm_eager(model, tc):
+    """The ADM's captured step run eagerly over the same buffers."""
+    g = fd.ADMStepGraph(model, tc.shape[0], tc.shape[1], tc.device)
+    with torch.inference_mode():
+        out = g.decode(model, tc.to(model.adm.dtype))
+    assert g.graph is None
+    return out
+
+
+def _adm_sliced(model, tc):
+    """The sliced eager loop: ``adm_decode_raw``'s CPU path, on the card."""
+    dtype = model.adm.dtype
+    tc = tc.to(dtype)
+    B_, T_ = tc.shape[:2]
+    with torch.inference_mode():
+        caches = model.adm.new_cache(B_, T_, tc)
+        prev = torch.zeros(B_, dtype=torch.float32, device=tc.device)
+        out = []
+        for t in range(T_):
+            dt_emb = fd.dense(model.dt_linear_emb, prev[:, None].to(dtype))
+            x = torch.cat([fd.dense(model.tc_linear_emb, tc[:, t]), dt_emb], dim=-1)
+            x = model.adm.step(x + model.pe[t].to(dtype), caches, t)
+            prev = fd.dense(model.predict_layer, x)[:, 0].float()
+            out.append(prev)
+    return torch.stack(out, dim=1)
+
+
+def _durations(model, raw):
+    return torch.clamp((raw + 0.5).to(torch.int32), 1, model.cfg.max_duration_token).long()
+
+
+def test_adm_graph_equals_eager_step(adm):
+    tc = _tc_adm(adm, 11)
+    got = fd.adm_decode_raw(adm, tc)
+    assert torch.equal(got, _adm_eager(adm, tc))
+    assert len(torch.unique(_durations(adm, got))) > 3, got
+
+
+def test_adm_graph_matches_sliced_loop(adm):
+    """Raw predictions against the sliced eager loop within 6e-2 of the
+    largest; durations equal but within that tolerance of a .5 boundary."""
+    tc = _tc_adm(adm, 12)
+    have, want = fd.adm_decode_raw(adm, tc), _adm_sliced(adm, tc)
+    tol = 6e-2 * want.abs().max().item()
+    err = (have - want).abs().max().item()
+    assert err <= tol, (err, want.abs().max().item())
+    dh, dw = _durations(adm, have), _durations(adm, want)
+    assert (dh - dw).abs().max().item() <= 1
+    off = dh != dw
+    boundary = torch.minimum(dh, dw)[off].float() + 0.5
+    assert ((want[off] - boundary).abs() <= tol).all(), (want[off], boundary)
+    assert off.float().mean().item() < 0.05, off.float().mean().item()
+    assert torch.equal(fd.adm_fast_decode(adm, tc), dh)
+
+
+def test_adm_graph_output_is_not_the_static_buffer(adm):
+    a, b = _tc_adm(adm, 13), _tc_adm(adm, 14)
+    first = fd.adm_decode_raw(adm, a)
+    kept = first.clone()
+    second = fd.adm_decode_raw(adm, b)
+    assert torch.equal(first, kept)
+    assert not torch.equal(first, second)
+
+
+def test_adm_graph_counters_and_capture_span(adm):
+    tc = _tc_adm(adm, 15)
+    fd.adm_decode_raw(adm, tc)  # this shape captured before, or now
+    c0, r0 = fd.adm_decode_raw.graph_captures, fd.adm_decode_raw.graph_replays
+    p0 = (fd.plm_fast_decode.graph_captures, fd.plm_fast_decode.graph_replays)
+    fd.adm_decode_raw(adm, tc)
+    assert (fd.adm_decode_raw.graph_captures, fd.adm_decode_raw.graph_replays) == (c0, r0 + T)
+
+    tracing.enable()
+    try:
+        tracing.drain()
+        short = fd.adm_decode_raw(adm, tc[:5, :40])  # a new (B, T)
+        spans = tracing.drain()
+    finally:
+        tracing.disable()
+    assert fd.adm_decode_raw.graph_captures == c0 + 1
+    assert fd.adm_decode_raw.graph_replays == r0 + T + 40
+    caps = [s for s in spans if s[0] == "adm.capture"]
+    assert len(caps) == 1 and caps[0][3] == 40
+    assert [s[3] for s in spans if s[0] == "adm.decode"] == [40]
+    assert torch.equal(short, _adm_eager(adm, tc[:5, :40]))
+    assert (fd.plm_fast_decode.graph_captures, fd.plm_fast_decode.graph_replays) == p0
+
+    # in place: the graph reads the weights where they are, no capture
+    head = adm.predict_layer
+    with torch.no_grad():
+        head.weight.mul_(-1.0)
+    flipped = fd.adm_decode_raw(adm, tc)
+    assert fd.adm_decode_raw.graph_captures == c0 + 1
+    assert torch.equal(flipped, _adm_eager(adm, tc))
+    with torch.no_grad():
+        head.weight.mul_(-1.0)
+
+    # reassigned: a new address, captured again, reading the new storage
+    w = head.weight
+    w.data = w.data.flip(1).contiguous()
+    got = fd.adm_decode_raw(adm, tc)
+    assert fd.adm_decode_raw.graph_captures == c0 + 2
+    assert torch.equal(got, _adm_eager(adm, tc))
+    w.data = w.data.flip(1).contiguous()

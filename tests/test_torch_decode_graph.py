@@ -1,12 +1,14 @@
-"""The PLM decode step that the card replays as a CUDA graph
-(``fast_decode.PLMStepGraph``), run eagerly on the CPU: every row at one
-position held on the device, the whole cache attended with the positions
-above it masked (``DecoderLayer.step_slots``).  Held against the eager loop
-(``plm_fast_decode`` on the CPU, one sliced ``DecoderLayer.step`` a layer)
-and against JAX's ``plm_fast_decode``, in fp32 at tiny widths: codes equal,
-and each step's logits teacher-forced on those codes within 1e-5 of the
-largest (fp32 sums over a longer, masked row).  The card's own replay is held
-in ``tests/test_torch_cuda_graph.py``."""
+"""The PLM and ADM decode steps that the card replays as CUDA graphs
+(``fast_decode.PLMStepGraph``, ``fast_decode.ADMStepGraph``), run eagerly on
+the CPU: every row at one position held on the device, the whole cache
+attended with the positions above it masked (``DecoderLayer.step_slots``).
+Held against the eager loops (``plm_fast_decode`` and ``adm_decode_raw`` on
+the CPU, one sliced ``DecoderLayer.step`` a layer) and against JAX's
+``plm_fast_decode`` and ``adm_fast_decode``, in fp32 at tiny widths: codes
+and rounded durations equal; the PLM's logits, teacher-forced on the codes,
+and the ADM's raw predictions within 1e-5 of the largest (fp32 sums over a
+longer, masked row).  The card's own replay is held in
+``tests/test_torch_cuda_graph.py``."""
 import dataclasses
 
 import numpy as np
@@ -156,4 +158,73 @@ def test_cpu_decode_stays_eager(plm_pair):
     fast_decode.plm_fast_decode(model, torch.randn(B, T, 16))
     assert (fast_decode.plm_fast_decode.graph_captures,
             fast_decode.plm_fast_decode.graph_replays) == before
+    assert model not in fast_decode._graphs
+
+
+@pytest.fixture(scope="module")
+def adm_pair():
+    from megatts2_tpu import config as jcfg
+    from megatts2_tpu.models import MegaADM as JADM
+    from megatts2_tpu.quantization.weight_only import quantize_tree
+    from megatts2_tpu_torch.models import MegaADM
+
+    jc = jcfg.MegaADMConfig(n_layers=2, n_heads=2, emb_dim=8, tc_latent_dim=16, tc_emb_dim=8,
+                            dropout=0.0)
+    params = JADM(jc).init(KEY, jnp.zeros((1, 4, 16)), jnp.zeros((1, 5, 1)),
+                           jnp.asarray([4]))["params"]
+    rng = np.random.RandomState(24)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + np.float32(0.1) * rng.randn(*np.shape(x)).astype(np.float32),
+        params)
+    # spread the durations over several frames, and keep the raw feedback
+    # loop from growing geometrically (as tests/test_torch_decode.py)
+    params["predict_layer"]["kernel"] = params["predict_layer"]["kernel"] * 10.0
+    params["dt_linear_emb"]["kernel"] = params["dt_linear_emb"]["kernel"] * 0.02
+    qparams = jax.tree_util.tree_map(np.asarray, quantize_tree(params, 8))
+    return {"cfg": jc,
+            "float": (params, load_flax_params(MegaADM(_torch_cfg(jc)), params)),
+            "int8": (qparams, load_flax_params(quantize_(MegaADM(_torch_cfg(jc)), 8), qparams))}
+
+
+@pytest.mark.parametrize("case", ["float", "int8"])
+def test_adm_static_step_matches_eager_loop_and_jax(adm_pair, case):
+    """Raw predictions of the ADM's static step, run eagerly, within 1e-5 of
+    the largest of the eager loop's; rounded durations == the eager loop's
+    == JAX's ``adm_fast_decode``'s."""
+    from megatts2_tpu.models.fast_decode import adm_fast_decode as jax_decode
+    from megatts2_tpu_torch.models.fast_decode import (ADMStepGraph, adm_decode_raw,
+                                                       adm_fast_decode)
+
+    jc = adm_pair["cfg"]
+    params, model = adm_pair[case]
+    tc_np = np.random.RandomState(25).randn(B, 12, 16).astype(np.float32)
+    tc = torch.from_numpy(tc_np)
+    ref = np.asarray(jax_decode(params, jc, jnp.asarray(tc_np), dtype=jnp.float32,
+                                quant=case == "int8"))
+    eager = adm_decode_raw(model, tc).numpy()
+    g = ADMStepGraph(model, B, 12, tc.device)
+    with torch.inference_mode():
+        got = g.decode(model, tc)
+    assert g.graph is None and int(g.pos[0]) == 12
+    assert got.data_ptr() != g.out.data_ptr()
+    got = got.numpy()
+    np.testing.assert_allclose(got, eager, rtol=0, atol=1e-5 * np.abs(eager).max())
+    max_dt = jc.max_duration_token
+    rounded = np.clip((got + 0.5).astype(np.int32), 1, max_dt)
+    np.testing.assert_array_equal(rounded, np.clip((eager + 0.5).astype(np.int32), 1, max_dt))
+    np.testing.assert_array_equal(adm_fast_decode(model, tc).numpy(), ref)
+    np.testing.assert_array_equal(rounded, ref)
+    assert len(np.unique(ref)) > 3, ref  # the test exercises real rounding
+
+
+def test_adm_cpu_decode_stays_eager(adm_pair):
+    """On the CPU ``adm_decode_raw`` captures and replays nothing."""
+    from megatts2_tpu_torch.models import fast_decode
+
+    model = adm_pair["float"][1]
+    before = (fast_decode.adm_decode_raw.graph_captures,
+              fast_decode.adm_decode_raw.graph_replays)
+    fast_decode.adm_decode_raw(model, torch.randn(B, T, 16))
+    assert (fast_decode.adm_decode_raw.graph_captures,
+            fast_decode.adm_decode_raw.graph_replays) == before
     assert model not in fast_decode._graphs
